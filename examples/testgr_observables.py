@@ -3,7 +3,7 @@
 observables, differentiable spin fitting, retarded-time light curves.
 
   python examples/testgr_observables.py [--size 192] [--outdir examples/out]
-  python examples/testgr_observables.py --device cpu --size 96   # no TPU
+  python examples/testgr_observables.py --device cpu --size 96   # no GPU
 
 Produces:
   shadow_jp_eps3.png       Johannsen-Psaltis triptych (eps3 = -3/0/+3):
@@ -30,7 +30,7 @@ def main():
     parser.add_argument("--size", type=int, default=192)
     parser.add_argument("--outdir", default="examples/out")
     parser.add_argument("--device", default="default",
-                        choices=["default", "cpu", "tpu"])
+                        choices=["default", "cpu", "cuda"])
     args = parser.parse_args()
 
     import jax

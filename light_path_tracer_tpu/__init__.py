@@ -1,11 +1,11 @@
-"""light_path_tracer_tpu — a TPU-native general-relativistic ray tracer.
+"""light_path_tracer_tpu — a general-relativistic ray tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference CPU ray tracer (dhg14n9/Light-path-tracer): null-geodesic
 integration around Schwarzschild and Kerr black holes, black-hole shadow
 rendering, and gravitational lensing of background images.
 
-Design (TPU-first, not a port):
+Design (array-first, not a port):
   * Structure-of-arrays ray state over the whole pixel grid; every hot path
     is a single jitted XLA program (vmapped `lax.while_loop` / `lax.scan`),
     not a per-ray Python loop (reference: metrics.py:661-679 prange loops).

@@ -1,14 +1,14 @@
 """Supersampled (jittered-AA) rendering, tiled across a device mesh.
 
-BASELINE.json config 5: "4k supersampled render (4x jittered AA) tiled
-across v5e-8 via pmap/shard_map". Each AA pass shifts the pinhole grid by
+BASELINE.json config 5: a 4k supersampled render (4x jittered AA) tiled
+across a device mesh with shard_map. Each AA pass shifts the pinhole grid by
 a subpixel offset (rotated-grid pattern for 4x, golden-ratio sequence
 beyond). ALL passes are traced as ONE batch (the offset grids are
 stacked along the row axis), so the whole supersampled render is a
-single compile + a single trace dispatch — measured ~4x faster than the
-round-1 per-offset dispatch loop at 4k. Row-sharded over the mesh when
+single compile + a single trace dispatch instead of one dispatch per
+offset. Row-sharded over the mesh when
 one is given; averaging happens on device in float32; only the final
-image leaves the chip.
+image leaves the device.
 
 Top/bottom mirror symmetry (the reference's work-halving trick for its
 non-AA path, image_lens.py:218-229) extends to supersampling: when the
@@ -147,11 +147,9 @@ def _trace_all_passes(metric, scene, cfg, resolution, fov, offsets, mesh):
                 theta_obs=scene.theta_obs, mesh=mesh,
                 max_steps=cfg.max_steps)
     else:
-        # All passes in ONE dispatch when the batch fits under the
-        # device's large-dispatch fault threshold (> ~8-10M rays have
-        # faulted) — measured 2.2x on the composite path's trace stage
-        # (one straggler retrace, whole-batch amortization). Larger
-        # batches fall back to one pass-sized chunk per dispatch: all
+        # All passes in ONE dispatch up to ~8M rays (whole-batch
+        # amortization); larger batches fall back to one pass-sized
+        # chunk per dispatch, bounding device memory: all
         # chunks share one compiled kernel (identical shapes — the
         # round-1 per-offset loop recompiled per offset).
         chunk = cfg.chunk_size

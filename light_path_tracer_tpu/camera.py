@@ -371,7 +371,9 @@ def axis_refine_columns(image_dimension, fov, psi=(0.0, 0.0),
 def psi_frame_dynamic(psi_y, psi_x):
     """psi_frame with traced scalars: returns (d, e_x, e_y) as jnp (3,)
     vectors. Identical math to the host version; used by the sequence
-    renderer so a camera pan reuses one compiled program."""
+    renderer so a camera pan reuses one compiled program. Dot products
+    are written as sums of products: a float32 dot may run in TF32 on
+    a GPU."""
     sin_p, cos_p = jnp.sin(psi_y), jnp.cos(psi_y)
     sin_yw, cos_yw = jnp.sin(psi_x), jnp.cos(psi_x)
     d = jnp.stack([sin_yw * cos_p, -sin_p, cos_yw * cos_p])
@@ -379,13 +381,13 @@ def psi_frame_dynamic(psi_y, psi_x):
     cam_x = jnp.array([1.0, 0.0, 0.0], d.dtype)
     cam_y = jnp.array([0.0, 1.0, 0.0], d.dtype)
 
-    e_x = cam_x - jnp.dot(cam_x, d) * d
+    e_x = cam_x - jnp.sum(cam_x * d) * d
     nx = jnp.linalg.norm(e_x)
-    e_x_alt = cam_y - jnp.dot(cam_y, d) * d
+    e_x_alt = cam_y - jnp.sum(cam_y * d) * d
     e_x = jnp.where(nx < 1e-12, e_x_alt, e_x)
     e_x = e_x / jnp.maximum(jnp.linalg.norm(e_x), 1e-12)
 
-    e_y = cam_y - jnp.dot(cam_y, d) * d - jnp.dot(cam_y, e_x) * e_x
+    e_y = cam_y - jnp.sum(cam_y * d) * d - jnp.sum(cam_y * e_x) * e_x
     ny = jnp.linalg.norm(e_y)
     e_y = jnp.where(ny < 1e-12, jnp.cross(d, e_x), e_y)
     e_y = e_y / jnp.maximum(jnp.linalg.norm(e_y), 1e-12)

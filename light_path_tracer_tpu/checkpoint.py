@@ -33,7 +33,7 @@ CACHE_VERSION = 2
 # scheduling/verbosity (chunk_size also fixes chunk *boundaries* for the
 # resume store, but boundaries do not change the assembled result) and
 # render-stage-only knobs. Everything else (dtype, integrator, backend,
-# tolerances via max_steps, two_pass slot-overflow edge cases, ...) stays
+# tolerances via max_steps, ...) stays
 # in the key.
 _RESULT_IRRELEVANT_KNOBS = frozenset({
     "render_loop_around",   # renderer-only
@@ -197,11 +197,11 @@ def cached_precompute(scene: SceneConfig, cfg: RenderConfig,
 
 def save_session(directory: str, scene: SceneConfig, cfg: RenderConfig,
                  pre, image_dimension, fov) -> str:
-    """Persist a full render session with Orbax (docs/ROADMAP item).
+    """Persist a full render session with Orbax.
 
     The traced tables go through orbax-checkpoint's StandardCheckpointer
     (atomic directory commit, versioned on-disk format, async-capable —
-    the production checkpointing stack for TPU workloads); the scene /
+    the production checkpointing stack for JAX workloads); the scene /
     render configuration and the cache key ride alongside as JSON, so a
     restore can verify it matches the requesting configuration.
 

@@ -4,7 +4,7 @@ Flag parity with the reference (`image_lens.py:519-532`): --M --a --r-obs
 --psi-y --psi-x --fov-v, same semantics and defaults (psi in degrees,
 r-obs in units of M, vertical FOV in degrees). Extends it with subcommands
 for the other entry points (shadow render, single-ray demo, trajectory
-plot) and TPU-relevant knobs (dtype, chunking, lookup cache, device mesh).
+plot) and accelerator knobs (dtype, chunking, lookup cache, device mesh).
 
 Usage:
   python -m light_path_tracer_tpu lens   --a 0.9 --image image.jpg

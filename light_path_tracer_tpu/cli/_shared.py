@@ -50,11 +50,10 @@ def _add_scene_args(p):
 
 def _add_render_args(p):
     p.add_argument("--device", default="default",
-                   choices=["default", "cpu", "tpu"],
+                   choices=["default", "cpu", "cuda"],
                    help="force the JAX platform (default: whatever the "
                         "environment provides). 'cpu' never touches an "
-                        "accelerator — useful for portability and when "
-                        "a TPU grant is wedged")
+                        "accelerator; 'cuda' requires a GPU")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--chunk-size", type=int, default=0,
@@ -95,8 +94,7 @@ def _add_multihost_args(p):
                         "mesh (every chip of every process); start one "
                         "CLI process per host")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator address host:port (omit on real "
-                        "TPU pods — auto-detected)")
+                   help="coordinator address host:port of process 0")
     p.add_argument("--num-processes", type=int, default=None,
                    help="total process count (omit to auto-detect)")
     p.add_argument("--process-id", type=int, default=None,

@@ -13,7 +13,7 @@ from light_path_tracer_tpu.cli import (animate, disk, lens, pano,
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="light_path_tracer_tpu",
-        description="TPU-native general-relativistic ray tracer")
+        description="General-relativistic ray tracer (JAX, GPU)")
     sub = parser.add_subparsers(dest="command")
     # Registration order = help-listing order (reference parity kept
     # from the monolithic cli.py).
@@ -38,9 +38,7 @@ def main(argv=None) -> int:
     restore = {}
     device = getattr(args, "device", "default")
     if device != "default":
-        # Must run before any backend initialization: some TPU plugins
-        # force-register themselves and override JAX_PLATFORMS at
-        # interpreter start, so the env var alone is not enough.
+        # Must run before any backend initialization.
         restore["jax_platforms"] = jax.config.jax_platforms
         jax.config.update("jax_platforms", device)
     if getattr(args, "dtype", "float32") == "float64":
@@ -74,7 +72,16 @@ def main(argv=None) -> int:
         if not getattr(args, "fn", None):
             parser.print_help()
             return 2
-        return args.fn(args)
+        try:
+            return args.fn(args)
+        except ModuleNotFoundError as e:
+            pkg = (e.name or "").split(".")[0]
+            if pkg not in ("matplotlib", "PIL", "tqdm"):
+                raise
+            print(f"error: this mode needs {pkg}, part of the optional "
+                  f"viz extra: pip install 'light-path-tracer-tpu[viz]'",
+                  file=sys.stderr)
+            return 2
     finally:
         # All captured settings are process-global; restore them so
         # in-process callers (tests, notebooks) can invoke main()

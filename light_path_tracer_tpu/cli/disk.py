@@ -13,10 +13,6 @@ def cmd_disk(args) -> int:
     """Accretion-disk render (BASELINE.json config 4)."""
     if _reject_metric_py(args, "disk"):
         return 2
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.image as mpimg
-    import matplotlib.cm as cm
     from light_path_tracer_tpu.utils.config import SceneConfig
     from light_path_tracer_tpu.disk import render_disk, DiskConfig
 
@@ -238,6 +234,7 @@ def cmd_disk(args) -> int:
     if args.frames > 1:
         # Hot-spot orbit animation: ONE trace, args.frames re-renders.
         from PIL import Image
+        import matplotlib.cm as cm
         from light_path_tracer_tpu.disk import (render_disk_frames,
                                                 HotSpot, keplerian_omega)
         spot = HotSpot(r0=args.spot_r0, amplitude=args.spot_amplitude)
@@ -308,17 +305,17 @@ def cmd_disk(args) -> int:
                                     disk, aa_samples=args.aa)
     else:
         img, stats = render_disk(scene, (args.size, args.size), cfg, disk)
-    if args.spectrum == "blackbody":
-        # Physically colored (linear sRGB): gamma-encode for the PNG.
-        # (Host-side: device-f32 pow differs from this float64 pow in
-        # the last ulp, which could flip a truncated texel — the
-        # byte-identical guarantee of utils/save.py would not hold.)
-        colored = np.clip(np.asarray(img), 0.0, 1.0) ** (1.0 / 2.2)
-    else:
-        from light_path_tracer_tpu.utils.save import quantize_cmap_index
-        colored = cm.afmhot(np.asarray(quantize_cmap_index(img)))[..., :3]
     if _is_proc0():
-        mpimg.imsave(args.output, colored)
+        from light_path_tracer_tpu.utils.save import save_cmap_png, save_png
+        if args.spectrum == "blackbody":
+            # Physically colored (linear sRGB): gamma-encode for the
+            # PNG on the host (a device-f32 pow differs from this
+            # float64 pow in the last ulp, which could flip a truncated
+            # texel).
+            save_png(args.output,
+                     np.clip(np.asarray(img), 0.0, 1.0) ** (1.0 / 2.2))
+        else:
+            save_cmap_png(args.output, img, "afmhot")
     t = stats["timings"]
     print(f"Accretion disk: {args.size}x{args.size}, a={args.a}, "
           f"inclination {args.inclination} deg, "

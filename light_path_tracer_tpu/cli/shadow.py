@@ -12,8 +12,8 @@ from light_path_tracer_tpu.cli._shared import (
 def cmd_shadow(args) -> int:
     """Shadow render (black_hole_shadow.py parity + integrated mode)."""
     import os
-    import matplotlib.image as mpimg
     from light_path_tracer_tpu.pipeline import render_shadow, render_rings
+    from light_path_tracer_tpu.utils.save import save_cmap_png, save_png
 
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
@@ -24,14 +24,13 @@ def cmd_shadow(args) -> int:
                   "ignoring")
         masks, composite, stats = render_rings(
             scene, (args.size, args.size), cfg, max_order=args.max_order)
-        mpimg.imsave(args.output, np.asarray(composite))
+        save_png(args.output, np.asarray(composite))
         stem, ext = os.path.splitext(args.output)
         labels = ([f"order{k}" for k in range(args.max_order)]
                   + [f"order{args.max_order}plus", "shadow"])
         for mask, label in zip(np.asarray(masks), labels):
-            mpimg.imsave(f"{stem}_{label}{ext}",
-                         mask.astype(np.float32), cmap="gray",
-                         vmin=0, vmax=1)
+            save_cmap_png(f"{stem}_{label}{ext}", mask.astype(np.float32),
+                          "gray")
         t = stats["timings"]
         print(f"Photon-ring decomposition: {args.size}x{args.size}, "
               f"a={scene.a}, precompute {t.get('precompute', 0.0):.3f}s")
@@ -75,15 +74,9 @@ def cmd_shadow(args) -> int:
         img, stats = render_shadow(scene, (args.size, args.size), cfg,
                                    analytic=args.analytic)
     if _is_proc0():
-        # uint8 colormap-index readback (1 B/px vs 4) + host-side LUT
-        # with bytes=True: byte-identical to the float cmap="gray"
-        # save (pinned in tests/test_save.py; round-4 item 5 — this is
-        # the 4k AA path whose f32 readback was the ~1 s floor).
-        from matplotlib import cm as _cm
-        from light_path_tracer_tpu.utils.save import quantize_cmap_index
-        mpimg.imsave(args.output,
-                     _cm.gray(np.asarray(quantize_cmap_index(img)),
-                              bytes=True))
+        # uint8 colormap-index readback (1 B/px vs 4) + host-side
+        # lookup table: the pixels of a float cmap="gray" save.
+        save_cmap_png(args.output, img, "gray")
     t = stats["timings"]
     mode = ("analytic threshold" if args.analytic
             else (f"integrated, {stats['aa_samples']}x AA"

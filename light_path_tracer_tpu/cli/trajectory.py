@@ -228,7 +228,7 @@ def register_orbit(sub):
     p.add_argument("--steps", type=int, default=6000,
                    help="adaptive-step budget (more steps = more orbits)")
     p.add_argument("--device", default="default",
-                   choices=["default", "cpu", "tpu"])
+                   choices=["default", "cpu", "cuda"])
     p.add_argument("--no-plot", action="store_true")
     p.add_argument("--output", default="orbit.png")
     # Precession accumulates phase over many orbits: always integrate in

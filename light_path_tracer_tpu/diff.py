@@ -7,8 +7,8 @@ final deflection field's sensitivity to the physical scene —
 ∂(final_alpha)/∂(a, M, r_obs, theta_obs) — comes from `jax.grad`
 instead of finite differences, and inverse problems ("which spin
 produced this deflection field / this lensed image?") become gradient
-descent. This is the TPU-native framework earning something new from
-its architecture, not just speed.
+descent: the array framework earns something new from its
+architecture, not just speed.
 
 Design notes (why this is a separate path from ops/kerr_trace.py):
 
@@ -235,8 +235,10 @@ def fit_scene_params(observed_alpha, alphas, thetas, init_params,
     history = [float(loss_of(vec))]
     for _ in range(iters):
         r, J = res_and_jac(vec)
-        g = J.T @ r
-        H = J.T @ J
+        # Explicit full precision: the normal equations are precision-
+        # sensitive, and a float32 product may otherwise run in TF32.
+        g = jnp.matmul(J.T, r, precision=jax.lax.Precision.HIGHEST)
+        H = jnp.matmul(J.T, J, precision=jax.lax.Precision.HIGHEST)
         accepted = False
         for _retry in range(8):
             delta = jnp.linalg.solve(

@@ -77,7 +77,8 @@ class DiskConfig:
     # symmetry), approximate for tilted Kerr disks (ignores
     # frame-dragging misalignment, O(a sin(tilt)) in the shift; real
     # tilted Kerr disks also precess — Lense-Thirring — which a static
-    # image does not show). XLA backend only (atan2 in Mosaic).
+    # image does not show). XLA backend only (the fused kernel records
+    # equatorial crossings only).
     tilt: float = 0.0
     tilt_azimuth: float = 0.0
     # Warped (Bardeen-Petterson) disk: inner regions align with the
@@ -285,19 +286,13 @@ class DiskTraceResult(NamedTuple):
 def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
                     lambda_max: float, max_steps: int, disk: DiskConfig,
                     backend: str = "auto", precision: str = "fast",
-                    method: str = "dp45", two_pass="auto",
-                    pass1_steps: int = 512,
+                    method: str = "dp45",
                     record_momentum: bool = False,
                     record_time: bool = False) -> DiskTraceResult:
     """Trace rays recording equatorial crossings; returns DiskTraceResult.
     backend / precision as in trace_batch; method = "dp45" | "dop853"
     (the crossing recorder needs the adaptive shared loop, so the
-    fixed-step "rk4" comparison integrator is not available here).
-    two_pass: straggler containment on the Pallas path ("auto" = ON:
-    unlike the shadow grid, disk workloads are routinely rendered from
-    jittered/AA grids whose near-axis L -> 0 lanes pin whole tiles —
-    measured 20x at 1024^2 with a quarter-pixel offset, and the capped
-    first pass costs <10% even on aligned grids; BASELINE.md)."""
+    fixed-step "rk4" comparison integrator is not available here)."""
     if method not in ("dp45", "dop853"):
         raise ValueError(
             f"disk mode supports integrator 'dp45' or 'dop853' (the "
@@ -305,14 +300,10 @@ def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
             f"{method!r}")
     from light_path_tracer_tpu.ops.batch import _kerr_backend
     resolved = _kerr_backend(backend, alphas.dtype, metric)
-    if disk.tilt != 0.0 or disk.warp_radius is not None:
-        # Tilted/warped recording needs atan2 inside the hot loop,
-        # which Mosaic does not lower — route to the XLA path.
-        resolved = "xla"
-    if record_time:
-        # Crossing-time recording is XLA-path only (light-curve
-        # workloads are small grids; the Pallas kernel's output-ref
-        # plumbing doesn't carry the t slots).
+    if disk.tilt != 0.0 or disk.warp_radius is not None or record_time:
+        # The fused kernel records equatorial crossings only: tilted and
+        # warped planes (atan2 in the loop) and crossing times stay on
+        # the XLA path.
         resolved = "xla"
     r_in = disk.r_in if disk.r_in is not None else r_isco(
         metric.M, metric.a, disk.prograde,
@@ -320,15 +311,6 @@ def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
     plane = (float(r_in), float(disk.r_out), float(np.pi / 2),
              bool(disk.opaque))
     if resolved == "pallas":
-        use_two = two_pass if two_pass != "auto" else True
-        if use_two:
-            from light_path_tracer_tpu.ops.pallas.kerr_trace_kernel \
-                import trace_disk_rays_two_pass
-            return trace_disk_rays_two_pass(
-                metric, float(r_obs), alphas, thetas, float(theta_obs),
-                float(lambda_max), max_steps, plane, disk.max_hits,
-                pass1_steps=pass1_steps, precision=precision,
-                method=method, record_momentum=record_momentum)
         from light_path_tracer_tpu.ops.pallas.kerr_trace_kernel import (
             trace_disk_rays_pallas)
         return trace_disk_rays_pallas(
@@ -645,8 +627,7 @@ def render_disk(scene: SceneConfig, resolution,
             metric, scene.r_obs, alpha.ravel(), theta.ravel(),
             scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
             cfg.max_steps, disk, backend=cfg.backend,
-            precision=cfg.precision, method=cfg.integrator,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+            precision=cfg.precision, method=cfg.integrator)
         out.append(res.status)
 
     with timer.stage("render") as out:
@@ -730,8 +711,7 @@ def render_disk_decomposed(scene: SceneConfig, resolution,
             metric, scene.r_obs, alpha.ravel(), theta.ravel(),
             scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
             cfg.max_steps, rec, backend=cfg.backend,
-            precision=cfg.precision, method=cfg.integrator,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+            precision=cfg.precision, method=cfg.integrator)
         out.append(res.status)
 
     with timer.stage("render") as out:
@@ -830,9 +810,9 @@ def _disk_pixels(lum, intensity, rgb, resolution, grayscale: bool,
         chroma = rgb / jnp.maximum(intensity, 1e-12)[:, None]
         disk_px = chroma * lum[:, None]
         if grayscale:
-            return (disk_px @ jnp.asarray([0.299, 0.587, 0.114],
-                                          disk_px.dtype)
-                    ).reshape(resolution)
+            return jnp.matmul(
+                disk_px, jnp.asarray([0.299, 0.587, 0.114], disk_px.dtype),
+                precision=jax.lax.Precision.HIGHEST).reshape(resolution)
         if channels >= 3:
             pad = jnp.ones((disk_px.shape[0], channels - 3),
                            disk_px.dtype)
@@ -859,9 +839,8 @@ def keplerian_omega(M, a, r, prograde: bool = True, Q: float = 0.0):
     # M is always a static Python number — fold sqrt(M) at trace time,
     # as a PYTHON float (weak type): jnp.sqrt(python_float)
     # materializes a default-dtype scalar OP in the jaxpr, which under
-    # jax_enable_x64 is float64 and does not lower inside Mosaic
-    # kernels (the volumetric accuracy gate traces this closure in an
-    # x64 process) — while an np.float64 scalar is a STRONG type that
+    # jax_enable_x64 is float64 and would put float64 ops into the f32
+    # trace — while an np.float64 scalar is a STRONG type that
     # silently promotes the f32 while_loop carry (see _g_jet's gamma).
     sqrtM = float(np.sqrt(M)) if np.isscalar(M) else xp.sqrt(M)
     if prograde:
@@ -1074,8 +1053,7 @@ def render_disk_frames(scene: SceneConfig, resolution, times,
             metric, scene.r_obs, alpha.ravel(), theta.ravel(),
             scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
             cfg.max_steps, disk, backend=cfg.backend,
-            precision=cfg.precision, method=cfg.integrator,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+            precision=cfg.precision, method=cfg.integrator)
         out.append(res.status)
 
     with timer.stage("render") as out:
@@ -1191,8 +1169,7 @@ def render_scene_with_disk(scene: SceneConfig, source_image,
             metric, scene.r_obs, alpha.ravel(), theta.ravel(),
             scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
             cfg.max_steps, disk, backend=cfg.backend,
-            precision=cfg.precision, method=cfg.integrator,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+            precision=cfg.precision, method=cfg.integrator)
         out.append(res.status)
 
     with timer.stage("render") as out:
@@ -1301,8 +1278,7 @@ def render_disk_aa(scene: SceneConfig, resolution,
             metric, scene.r_obs, alpha.ravel(), theta.ravel(),
             scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
             cfg.max_steps, disk, backend=cfg.backend,
-            precision=cfg.precision, method=cfg.integrator,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+            precision=cfg.precision, method=cfg.integrator)
         out.append(res.status)
 
     with timer.stage("render") as out:
@@ -1451,8 +1427,7 @@ def _render_scene_with_disk_aa_stacked(scene, source_image, cfg, disk,
             metric, scene.r_obs, alphas[g].ravel(), thetas[g].ravel(),
             scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
             cfg.max_steps, disk, backend=cfg.backend,
-            precision=cfg.precision, method=cfg.integrator,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+            precision=cfg.precision, method=cfg.integrator)
             for g in groups]
         res = (results[0] if len(results) == 1
                else _concat_disk_results(results))

@@ -5,7 +5,7 @@ exposes `geodesic_equations`, `initial_conditions`, `trace_ray`, `alpha_crit`,
 `capture_radius`, `viewing_angle_to_impact_parameter` and the
 `is_spherically_symmetric` class flag.
 
-TPU-native design differences:
+Design differences from the reference:
   * Metrics are small frozen dataclasses of Python floats — hashable, so they
     can close over jitted programs as static configuration. Scalar, config-time
     math (`alpha_crit`, impact parameters, horizon radii) runs host-side in

@@ -40,8 +40,8 @@ physics) is asymptotic. Angle extraction runs at the escape radius
 (2 r_obs) with the same justification — but through the user metric's
 own contravariant components, exactly.
 
-XLA backend only (`supports_pallas = False`: jax.grad of an arbitrary
-user callable does not lower inside the Mosaic tile kernel); disk
+XLA backend only (`supports_pallas = False`: the fused Pallas kernel
+is not checked against jax.grad of arbitrary user callables); disk
 orbital machinery (ISCO, Keplerian Omega) keeps closed forms for the
 shipped families and rejects custom metrics. Polarization is
 Kerr-only. Supported surfaces: shadow, lens, magnification, AA,
@@ -49,7 +49,7 @@ adaptive AA, visibility, trajectories.
 
 Reference parity anchor: the reference's extension surface is the
 `Metric` ABC (metrics.py:682-728) with exactly two concrete families;
-this module is the TPU-native generalization of that ABC to
+this module is the batched generalization of that ABC to
 arbitrary user spacetimes, with the integrator derived from the
 metric instead of hand-coded per family.
 """
@@ -199,9 +199,9 @@ class CustomMetric(Kerr):
     #: r_obs, so match it to the observer radius you render from.
     alpha_crit_override: float | None = None
 
-    #: jax.grad of the user callable does not lower inside the Mosaic
-    #: tile kernel; ops.batch._kerr_backend resolves this family to
-    #: the XLA while_loop path.
+    #: The fused Pallas kernel is not checked against jax.grad of
+    #: arbitrary user callables; ops.batch._kerr_backend resolves this
+    #: family to the XLA while_loop path.
     supports_pallas: bool = dataclasses.field(
         default=False, init=False, repr=False)
 

@@ -43,10 +43,9 @@ screen mapping at the OBSERVER, where h(r_obs) = eps3 (M/r_obs)^3
 (~1e-6 at 100M) — the ray's momentum is then made exactly null
 through the JP `_inv_terms`, so only the screen parametrization (not
 the physics) is asymptotic. Angle extraction runs at the escape
-radius (2 r_obs) with the same justification. Since round 4 the
-family runs on BOTH backends (the hand-derived rhs5 has no jax.grad,
-so it lowers under Mosaic — Pallas tile-kernel parity in
-SMOKE_r04.json); disk/orbital machinery (ISCO, Keplerian Omega) keeps
+radius (2 r_obs) with the same justification. The family runs on
+BOTH backends (the hand-derived rhs5 has no jax.grad, so it runs in
+the fused Pallas kernel — tests/test_pallas.py); disk/orbital machinery (ISCO, Keplerian Omega) keeps
 its Kerr closed forms and is NOT wired for eps3 != 0 — shadow, lens,
 magnification, AA, and trajectories are the supported surfaces.
 Validity: moderate deformations (|eps3| of a few); large negative
@@ -78,7 +77,7 @@ def _covariant_terms_jp(M, a, eps3, r, th):
     a2 = a * a
     Sigma = r2 + a2 * cos_th * cos_th
     Delta = r2 - 2.0 * M * r + a2
-    h = eps3 * (M ** 3) * r / (Sigma * Sigma)
+    h = eps3 * (M * M * M) * r / (Sigma * Sigma)
     two_Mr = 2.0 * M * r
     g_tt = -(1.0 + h) * (1.0 - two_Mr / Sigma)
     g_tphi = -(a * two_Mr * sin2 / Sigma) * (1.0 + h)
@@ -92,9 +91,8 @@ def _covariant_terms_jp(M, a, eps3, r, th):
 
 def _covariant_derivs_jp(M, a, eps3, r, th):
     """Hand-derived covariant components AND their closed-form r/theta
-    partials — the round-4 derivation that lifts JP onto the Pallas
-    tier (verdict item 8: jax.grad does not lower under Mosaic; these
-    partials are mechanical calculus over Sigma, Delta,
+    partials — the derivation that puts JP in the fused Pallas kernel
+    without jax.grad; these partials are mechanical calculus over Sigma, Delta,
     h = eps3 M^3 r / Sigma^2, W = 2Mr/Sigma, with g_phiphi rewritten as
     sin2 * [r^2 + a^2 + a^2 W sin2 + a^2 h (1 + W)] via
     (Sigma + 2Mr)/Sigma = 1 + W).
@@ -127,9 +125,9 @@ def _covariant_derivs_jp(M, a, eps3, r, th):
     g_tt = -oh * (1.0 - W)
     g_tt_r = -h_r * (1.0 - W) + oh * W_r
     g_tt_t = -h_t * (1.0 - W) + oh * W_t
-    g_tp = -a * W * s2 * oh
-    g_tp_r = -a * s2 * (W_r * oh + W * h_r)
-    g_tp_t = -a * (s2p * W * oh + s2 * (W_t * oh + W * h_t))
+    g_tp = -(a * W * s2 * oh)
+    g_tp_r = -(a * s2 * (W_r * oh + W * h_r))
+    g_tp_t = -(a * (s2p * W * oh + s2 * (W_t * oh + W * h_t)))
     B = Del + a2 * h * s2
     B_r = Del_r + a2 * h_r * s2
     B_t = a2 * (h_t * s2 + h * s2p)
@@ -149,9 +147,9 @@ def _covariant_derivs_jp(M, a, eps3, r, th):
 @dataclasses.dataclass(frozen=True)
 class JohannsenPsaltis(Kerr):
     eps3: float = 0.0
-    # supports_pallas is inherited True since round 4: rhs5 below is a
-    # hand-derived closed form (no jax.grad), so JP shadows/lensing run
-    # on the Mosaic tile kernel like Kerr/KN (verdict item 8).
+    # supports_pallas is inherited True: rhs5 below is a hand-derived
+    # closed form (no jax.grad), so JP shadows/lensing run in the fused
+    # kernel like Kerr/KN.
 
     def __post_init__(self):
         super().__post_init__()
@@ -234,8 +232,8 @@ class JohannsenPsaltis(Kerr):
         the same quotient structure) is the roundoff-level oracle —
         agreement <= ~1e-10 rel on random states, and eps3 = 0 matches
         Kerr's independent hand form (tests/test_johannsen_psaltis.py).
-        No jax.grad -> lowers under Mosaic -> the Pallas tile kernel
-        (verdict item 8; chip parity in SMOKE_r04.json)."""
+        No jax.grad, so it runs in the fused Pallas kernel
+        (tests/test_pallas.py)."""
         r, th, phi, p_r, p_th = state5
         dtype = r.dtype
         M = jnp.asarray(self.M, dtype)

@@ -18,7 +18,7 @@ Physics parity with /root/reference/metrics.py:840-1133:
   * final-angle extraction through the coordinate-velocity chain rule
     (metrics.py:363-416).
 
-TPU-native re-design: all hot-path functions are batched jnp over N rays
+Array re-design: all hot-path functions are batched jnp over N rays
 (structure-of-arrays tuples), ready for `vmap`-free direct array evaluation
 inside `lax.while_loop` integrators and Pallas kernels. A correctness
 oracle cross-checks the analytic RHS against a complex-step derivative of
@@ -34,12 +34,11 @@ Two algebraically equivalent formulations of the polar coordinate exist:
     evaluation.
   * mu-form (`rhs5_mu`): state [r, mu=cos(theta), phi, p_r, p_mu] — every
     inverse-metric component is a *rational* function of (r, mu), so the
-    hot loop runs with ZERO transcendentals. Measured on a v5e: ~25%
-    cheaper per DP45 step than the theta form, but it needs a theta-form
+    hot loop runs with ZERO transcendentals, but it needs a theta-form
     retrace of pole-approaching lanes (trace_rays_kerr_hybrid) and takes
-    ~25% more steps in the near-pole band, which nets out slightly
-    SLOWER end-to-end at 1024^2 — so theta remains the default and mu is
-    the opt-in formulation (BASELINE.md "formulation study"). Conversion
+    more steps in the near-pole band — so theta is the default and mu is
+    the opt-in formulation (its cost on the GPU is not measured).
+    Conversion
     at entry/exit: p_mu = -p_theta / sin(theta).
 
 The batched hot-path surface lives in `_KerrHotPath`, shared by two
@@ -298,17 +297,20 @@ class _KerrHotPath:
 
         # Covariant canonical momentum convention: p_t = -E (E > 0 for
         # future-directed null geodesics); must match the Hamiltonian flow.
-        p_t = -E
+        # Written as a constant, not -E: the Pallas Triton route cannot
+        # negate a folded literal.
+        p_t = jnp.asarray(-1.0, dtype)
         p_phi = L
 
         Theta = jnp.maximum(
             Q - cos_th * cos_th * (L * L / sin2 - a * a * E * E), 0.0)
         # dtype-pinned sign constants: weak-float where-branches
         # broadcast to a DEFAULT-dtype array (float64 under x64) before
-        # the astype, and 64-bit vectors do not lower inside Mosaic
-        # kernels traced in an x64-enabled process.
+        # the astype, which would put float64 ops into the f32 kernel
+        # traced in an x64-enabled process.
         one = jnp.asarray(1.0, dtype)
-        p_th_sign = jnp.where(cos_screen > 0.0, -one, one)
+        minus_one = jnp.asarray(-1.0, dtype)
+        p_th_sign = jnp.where(cos_screen > 0.0, minus_one, one)
         p_th = p_th_sign * jnp.sqrt(Theta)
 
         (g_tt, g_tphi, g_rr, g_thth, g_phiphi,
@@ -323,7 +325,7 @@ class _KerrHotPath:
         # reference's inward root is correct only for the forward-looking
         # pinhole FOV. Backward rays (panorama chart) start outward:
         # p^r = g^rr p_r > 0. Bitwise unchanged for alpha <= pi/2.
-        p_r = jnp.where(jnp.cos(alphas) >= 0.0, -one, one) * jnp.sqrt(
+        p_r = jnp.where(jnp.cos(alphas) >= 0.0, minus_one, one) * jnp.sqrt(
             jnp.maximum(p_r_sq, 0.0))
 
         invalid = jnp.broadcast_to(bad_obs, alphas.shape)
@@ -367,9 +369,8 @@ class _KerrHotPath:
         inverse-metric components; RHS hard-zeroed inside r <= 1.001 r_+.
         state5 = (r, th, phi, p_r, p_th) tuple of (N,) arrays.
 
-        VPU-optimized form: the naive expression uses ~10 divides per
-        evaluation (divides are many-cycle on the TPU vector unit); this
-        form computes three reciprocals (1/Sigma, 1/Delta, 1/sin^2) once
+        Divide-light form: the naive expression uses ~10 divides per
+        evaluation (divides cost many cycles); this form computes three reciprocals (1/Sigma, 1/Delta, 1/sin^2) once
         and expresses every quotient as products of them — algebraically
         identical, ~equal rounding (divides replaced by reciprocal+mul).
         This is the parity/oracle surface; production integration runs
@@ -409,7 +410,7 @@ class _KerrHotPath:
             # g_tphi numerator: W = 2Mr - Q^2 (identically r^2+a^2-Delta,
             # but this form keeps the Kerr-limit rounding behavior).
             W = 2.0 * M * r_s - self._q2
-            g_tphi = -a * W * inv_SD
+            g_tphi = -(a * W * inv_SD)
         else:
             g_tphi = -2.0 * M * a * r_s * inv_SD
         g_phiphi = (Delta - a2 * sin2) * inv_SD * inv_sin2
@@ -428,7 +429,7 @@ class _KerrHotPath:
         dg_tt_dr = -(dA_dr * SD - A * dSD_dr) * inv_SD2
         if self._q2:
             # d/dr of -aW/(Sigma Delta) with dW/dr = 2M.
-            dg_tphi_dr = -a * (2.0 * M * SD - W * dSD_dr) * inv_SD2
+            dg_tphi_dr = -(a * (2.0 * M * SD - W * dSD_dr) * inv_SD2)
         else:
             dg_tphi_dr = -(2.0 * M * a * (SD - r_s * dSD_dr)) * inv_SD2
         dg_rr_dr = (dDelta_dr * Sigma - Delta * dSigma_dr) * inv_S2
@@ -484,8 +485,7 @@ class _KerrHotPath:
         same Hamiltonian as `rhs5` after the canonical transformation
         theta -> mu (g^mumu = sin^2/Sigma, sin^2 = (1-mu)(1+mu)), so every
         component is a rational function of (r, mu): ZERO transcendentals
-        in the hot loop — the production formulation on TPU (module
-        docstring). RHS hard-zeroed inside r <= 1.001 r_+ like rhs5.
+        in the hot loop (module docstring). RHS hard-zeroed inside r <= 1.001 r_+ like rhs5.
         """
         r, mu, phi, p_r, p_mu = state5
         dtype = r.dtype
@@ -520,7 +520,7 @@ class _KerrHotPath:
             # g_tphi numerator: W = 2Mr - Q^2 (identically r^2+a^2-Delta,
             # but this form keeps the Kerr-limit rounding behavior).
             W = 2.0 * M * r_s - self._q2
-            g_tphi = -a * W * inv_SD
+            g_tphi = -(a * W * inv_SD)
         else:
             g_tphi = -2.0 * M * a * r_s * inv_SD
         g_phiphi = (Delta - a2 * s) * inv_SD * inv_s
@@ -539,7 +539,7 @@ class _KerrHotPath:
         dg_tt_dr = -(dA_dr * SD - A * dSD_dr) * inv_SD2
         if self._q2:
             # d/dr of -aW/(Sigma Delta) with dW/dr = 2M.
-            dg_tphi_dr = -a * (2.0 * M * SD - W * dSD_dr) * inv_SD2
+            dg_tphi_dr = -(a * (2.0 * M * SD - W * dSD_dr) * inv_SD2)
         else:
             dg_tphi_dr = -(2.0 * M * a * (SD - r_s * dSD_dr)) * inv_SD2
         dg_rr_dr = (dDelta_dr * Sigma - Delta * dSigma_dr) * inv_S2

@@ -90,8 +90,7 @@ class ReissnerNordstrom(Schwarzschild):
         # Outward branch for backward-looking rays (panorama chart);
         # see Schwarzschild.orbit_initial_state.
         one = jnp.asarray(1.0, alphas.dtype)   # dtype-pinned: weak
-        # where-branches broadcast to default dtype (f64 under x64),
-        # which does not lower inside Mosaic kernels.
+        # where-branches broadcast to default dtype (f64 under x64).
         w0 = jnp.where(jnp.cos(alphas) >= 0.0, one, -one) * jnp.sqrt(
             jnp.maximum(w0_sq, 0.0))
         return u0, w0, invalid

@@ -11,7 +11,7 @@ Physics parity with /root/reference/metrics.py:735-833:
   * slow path: full 8-D Hamiltonian RHS (metrics.py:763-790) and 8-D
     initial conditions (metrics.py:794-809).
 
-TPU-native re-design: every function below is batched structure-of-arrays
+Array re-design: every function below is batched structure-of-arrays
 jnp code; the integration loop lives in `ops/` (one XLA program over the
 entire pixel grid), not here.
 """
@@ -92,8 +92,7 @@ class Schwarzschild(Metric):
         # du/dphi < 0. sign(cos alpha) selects the branch; bitwise
         # unchanged for every alpha < pi/2 path.
         one = jnp.asarray(1.0, alphas.dtype)   # dtype-pinned: weak
-        # where-branches broadcast to default dtype (f64 under x64),
-        # which does not lower inside Mosaic kernels.
+        # where-branches broadcast to default dtype (f64 under x64).
         w0 = jnp.where(jnp.cos(alphas) >= 0.0, one, -one) * jnp.sqrt(
             jnp.maximum(w0_sq, 0.0))
         return u0, w0, invalid

@@ -42,6 +42,7 @@ single fused XLA program when jitted.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 # First zeros of the Bessel functions J0 and J1: the visibility nulls
@@ -61,7 +62,8 @@ def intensity(image):
     """
     img = jnp.asarray(image)
     if img.ndim == 3:
-        img = img @ jnp.asarray(_LUMA, dtype=img.dtype)
+        img = jnp.matmul(img, jnp.asarray(_LUMA, dtype=img.dtype),
+                         precision=jax.lax.Precision.HIGHEST)
     return img
 
 
@@ -105,7 +107,8 @@ def centroid_track(frames, fov):
     from light_path_tracer_tpu.camera import focal_lengths
     img = jnp.asarray(frames)
     if img.ndim >= 3 and img.shape[-1] == 3:
-        img = img @ jnp.asarray(_LUMA, dtype=img.dtype)
+        img = jnp.matmul(img, jnp.asarray(_LUMA, dtype=img.dtype),
+                         precision=jax.lax.Precision.HIGHEST)
     single = img.ndim == 2
     if single:
         img = img[None]

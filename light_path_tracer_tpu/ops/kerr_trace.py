@@ -1,6 +1,6 @@
 """Batched adaptive Dormand-Prince 4(5) Kerr tracer.
 
-TPU-native replacement for the reference's per-ray adaptive hot loop
+Batched replacement for the reference's per-ray adaptive hot loop
 (/root/reference/metrics.py:419-567): a single `lax.while_loop` advances the
 entire ray batch in lock-step. Each iteration performs one DP45 *attempt*
 per lane — six RHS evaluations plus the FSAL stage — then a per-lane masked
@@ -21,8 +21,10 @@ accept/reject:
 Divergent ray lifetimes are the structural hard part (3 steps vs 200k):
 lanes that finish are frozen by masking, and the loop exits as soon as
 *all* lanes in the batch are done — callers bound straggler blast radius by
-chunking + difficulty-sorting the batch (ops/batch.py), the TPU analogue of
-active-ray compaction.
+chunking + difficulty-sorting the batch (ops/batch.py), a whole-batch form
+of active-ray compaction. On the GPU the fused Pallas kernel
+(ops/pallas/kerr_trace_kernel.py) runs this same loop per block of rays,
+so each block exits on its own.
 """
 
 from __future__ import annotations
@@ -38,11 +40,8 @@ from light_path_tracer_tpu.ops.types import TraceResult
 
 # np.int32 (a STRONG type in JAX promotion), not Python int: under
 # jax_enable_x64 a weak-int literal inside jnp.where promotes the
-# status lattice to int64, and the int64->int32 cast that follows
-# infinitely recurses in Mosaic's convert-element-type lowering when
-# the same code is traced inside a Pallas kernel (observed round 5:
-# the volumetric accuracy gate runs the f32 Pallas tier in an
-# x64-enabled process for its f64 oracle).
+# status lattice to int64, which the same code traced inside the Pallas
+# kernel would then carry as 64-bit integers.
 RUNNING = np.int32(2)
 ESCAPED = np.int32(1)
 CAPTURED = np.int32(-1)
@@ -50,27 +49,21 @@ INVALID = np.int32(0)
 
 # Tolerance presets: (atol, rtol) normal / axis-refined. float64 matches
 # the reference (metrics.py:431-432). Three float32 tiers, calibrated by
-# a tolerance sweep on the 1024^2 Kerr a=0.9 workload (BASELINE.md "f32
-# gate"): final-alpha RMSE vs the f64 oracle is 2.6e-4 / 1.25e-4 /
-# 5.6e-5 / 3.0e-5 rad at atol=rtol = 3e-5 / 1e-5 / 3e-6 / 1e-6, at
-# +0/+10/+22/+44% steps — no f32 roundoff floor anywhere in this range.
+# a tolerance sweep on the 1024^2 Kerr a=0.9 workload: final-alpha RMSE
+# vs the f64 oracle falls from 2.6e-4 to 3.0e-5 rad as atol=rtol goes
+# from 3e-5 to 1e-6 — no f32 roundoff floor anywhere in this range.
 #   * "fast" (3e-5): the throughput tier; clears the 1e-3-rad angle gate
 #     with 4x margin.
-#   * "precise" (3e-6): ~2e-3 image RMSE on mid-frequency textures at
-#     ~20% throughput cost (full analysis in BASELINE.md).
-#   * "gate" (f32: 1e-6, f64: 1e-7): the acceptance-gate accuracy tier
-#     (GATE_r03.jsonl, all at 1024^2 Kerr a=0.9 vs the f64 oracle).
-#     float32 at atol 1e-6 is the knee of the f32 sweep: 2.1e-5-rad
-#     MEDIAN final-alpha error at ~12% cost on the straggler-bound
-#     grid, and it PASSES the image gate under bilinear sampling
-#     (3.1e-4 non-chaotic image RMSE — continuous metric). Under the
-#     reference's nearest-texel sampling ANY two tolerance-distinct
-#     runs plateau at a texel-flip noise floor (a rint flip is an
-#     O(texel-contrast) jump with probability ~ angle_err x focal):
-#     measured 1.5e-3 for f32@1e-6 and 3.4e-3 even for f64@1e-7. The
-#     as-written nearest-sampling gate passes on the production f64
-#     path at reference tolerances (f64_ref row: image RMSE 0.0,
-#     2.9e-8-rad angle RMSE, 215k rays/s on v5e emulated f64).
+#   * "precise" (3e-6): the middle tier.
+#   * "gate" (f32: 1e-6, f64: 1e-7): the acceptance-gate accuracy tier.
+#     float32 at atol 1e-6 is the knee of the f32 sweep, and it passes
+#     the image gate under bilinear sampling on non-chaotic pixels
+#     (chip_smoke.py's lens phase). Under the reference's nearest-texel
+#     sampling ANY two tolerance-distinct runs plateau at a texel-flip
+#     noise floor (a rint flip is an O(texel-contrast) jump with
+#     probability ~ angle_err x focal), so the as-written nearest-
+#     sampling gate passes only on the f64 path at reference
+#     tolerances.
 TOLS = {
     jnp.dtype(jnp.float64): dict(atol=1e-8, rtol=1e-6,
                                  atol_ref=1e-10, rtol_ref=1e-8,
@@ -214,9 +207,7 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
     way (tests/test_integrators.py cross-checks the two paths). NOTE:
     'mu' alone is ill-conditioned for rays passing near the polar axis
     (Kerr.pole_risk); mu users should go through trace_rays_kerr_hybrid,
-    which re-traces those lanes in theta form. On a v5e the mu hybrid
-    measured ~25% cheaper per step but slightly slower end-to-end at
-    1024^2 (BASELINE.md "formulation study"), so theta is the default.
+    which re-traces those lanes in theta form. theta is the default.
     """
     return _trace_rays_kerr_impl(
         metric, r_obs, alphas, thetas, theta_obs, axis_refine,
@@ -599,8 +590,8 @@ def saturation_r_max(metric):
     yet reach the emitting region), while a lane that has spent a full
     saturation window inside the band without any monitored change is a
     trapped near-critical orbiter whose remaining budget provably adds
-    nothing (BASELINE.md round 4: a 2048-step cap on the grinding
-    pointing reproduced the 200k-step run bitwise). 1.2x the outermost
+    nothing (a 2048-step cap on the grinding pointing reproduced the
+    200k-step run bitwise). 1.2x the outermost
     unstable photon orbit bounds every spherical photon orbit with
     margin; metrics without the closed form fall back to the photon
     sphere / twice the capture surface (purely conservative — a smaller
@@ -633,12 +624,13 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         attempt + the FSAL end stage, combined 5th/3rd-order error
         estimator): ~an order more accurate per step, so far fewer
         steps at equal tolerance — the step-count lever once the
-        per-step kernel is at the VPU roofline (BASELINE.md).
+        per-step cost is at its roofline.
     Both share the identical accept/reject masking, event interpolation,
     disk recording, and step control below.
 
     Shape-polymorphic over the ray axis/axes: the XLA path calls it on
-    (N,) arrays; the Pallas fused kernel calls it on (R, 128) VMEM tiles.
+    (N,) arrays; the fused Pallas kernel calls it on (block,) ray blocks
+    held in registers.
     Returns (y_final, status, lambda, steps_executed) — plus, when
     `disk_plane=(r_in, r_out, theta_plane, opaque)` is given, a
     `disk_hits` dict with the first `max_disk_hits` equatorial-plane
@@ -661,13 +653,11 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
 
     Emission-saturation early exit (sat_window > 0; extras traces only):
     a near-critical photon-ring lane neither captures nor escapes — it
-    grinds the full step budget (measured: 204,819 steps on the
-    canonical volumetric-decomposition pointing, 8x slower than every
-    sibling mode, NEWMODES_r04). Probing that grinder showed a Mosaic-
-    arithmetic REJECT LIMIT CYCLE: the lane's entire state freezes
-    bitwise from ~step 500 (r=2.5466 — inside the photon shell —
-    lam=104.246, identical at every budget from 512 to 20,000 steps)
-    while the same ray terminates in 175 steps on the XLA path. Once a
+    can grind the full step budget (seen: 204,819 steps on the
+    volumetric-decomposition pointing under the previous accelerator's
+    arithmetic, a REJECT LIMIT CYCLE whose entire state froze bitwise
+    from ~step 500 while the same ray ends in 175 steps on the CPU;
+    whether it occurs on the GPU is open, ROADMAP D3). Once a
     lane's monitored path integrals stop changing AT ALL, the remaining
     budget provably contributes nothing. A lane exits when, for
     `sat_window` CONSECUTIVE attempts (accepted or rejected — a
@@ -680,7 +670,7 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     the band a lane cannot be trapped, so its no-change streak is
     transit, not saturation). Exit sets lam = lambda_max: the lane
     reads as budget-complete (status RUNNING, like genuine lambda
-    exhaustion) and the two-pass drivers do not re-trace it. Monitor
+    exhaustion). Monitor
     only intensity-like extras — bookkeeping coordinates (winding m,
     coordinate time t, optical depth tau) keep changing on a genuinely
     whirling orbiter forever, and growing tau/m only decreases/
@@ -746,8 +736,9 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         and the recorded azimuth is the in-plane atan2(xhat.e2,
         xhat.e1) — both already physical on the double-cover chart
         (xhat carries sin(theta)'s sign). theta-form only (the mu chart
-        folds the branch), and XLA-path only (atan2 does not lower in
-        Mosaic). None = equatorial plane (cos-theta detector)."""
+        folds the branch), and XLA-path only (the fused kernel records
+        equatorial crossings only). None = equatorial plane (cos-theta
+        detector)."""
         if nrm is None:
             return None
         if callable(nrm):
@@ -776,8 +767,8 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         # (seen as a dark one-pixel seam down disk renders).
         _plane_cs = [float(np.cos(pl[2])) for pl, _nrm in _planes]
 
-        # "down" flags are carried as 0.0/1.0 in the compute dtype: bool
-        # (i1) vectors in a while_loop carry do not lower in Mosaic.
+        # "down" flags are carried as 0.0/1.0 in the compute dtype, not
+        # as bool vectors in the while_loop carry.
         def _track0(has_xi):
             return {
                 "n": jnp.zeros(y0[0].shape, jnp.int32),
@@ -843,7 +834,9 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     def cond(carry):
         step, y, k1, h, lam, status, hits, _sat, _frz = carry
         running = (status == RUNNING) & (lam < lam_max)
-        return (step < max_steps) & jnp.any(running)
+        # A max over the block rather than jnp.any: the Pallas Triton
+        # route has no lowering for reduce_or.
+        return (step < max_steps) & (jnp.max(running.astype(jnp.int32)) > 0)
 
     def body(carry):
         step, y, k1, h, lam, status, hits, sat_cnt, frz_cnt = carry
@@ -1031,13 +1024,11 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             # monitored path integrals were bitwise no-ops; a full
             # window inside the trapped-orbit band ends the lane as
             # budget-complete (lam := lam_max). Counting attempts, not
-            # accepted steps, is load-bearing: the measured grinder
-            # (the decomposition mode's 204,819-step pointing,
-            # NEWMODES_r04) is a Mosaic-arithmetic REJECT LIMIT CYCLE —
-            # its whole state freezes bitwise from ~step 500 (probed:
-            # r=2.5466, lam=104.246, every component identical at step
-            # budgets 512 through 20,000) and it never accepts again,
-            # so an accepted-step counter would never fire. A rejected
+            # accepted steps, is load-bearing: the grinder seen so far
+            # (the decomposition mode's 204,819-step pointing) is a
+            # REJECT LIMIT CYCLE — its whole state freezes bitwise and
+            # it never accepts again, so an accepted-step counter would
+            # never fire. A rejected
             # attempt cannot change the extras by construction, so it
             # legitimately extends the no-change streak.
             changed = jnp.zeros(upd.shape, bool)
@@ -1263,44 +1254,37 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
 @functools.partial(
     jax.jit,
     static_argnames=("metric", "r_obs", "theta_obs", "lambda_max",
-                     "max_steps", "event_interp", "backend", "s_thresh",
-                     "slots", "pass1_steps", "tile_rows", "precision",
-                     "method"))
+                     "max_steps", "event_interp", "s_thresh", "slots",
+                     "precision", "method"))
 def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
                            axis_refine, lambda_max: float,
                            max_steps: int = 200000,
                            event_interp: str = "hermite",
-                           backend: str = "xla",
                            s_thresh: float = 1e-3,
                            slots: int | None = None,
-                           pass1_steps: int | None = None,
-                           tile_rows: int | None = None,
                            dynamic_params=None,
                            precision: str = "fast",
                            method: str = "dp45"):
-    """Production Kerr tracer: mu-form bulk + theta-form pole fallback.
+    """Kerr tracer: mu-form bulk + theta-form pole fallback.
 
-    The rational mu = cos(theta) formulation integrates ~2x faster per
-    step than the theta form (zero transcendentals; scripts/sweep_kerr.py)
-    but is ill-conditioned for the few rays that pass near the polar axis
-    (p_mu ~ 1/sin(theta) diverges — typically the one screen column aimed
-    straight over the pole). This driver:
+    The rational mu = cos(theta) formulation needs no transcendentals
+    per step but is ill-conditioned for the few rays that pass near the
+    polar axis (p_mu ~ 1/sin(theta) diverges — typically the one screen
+    column aimed straight over the pole). This driver:
 
       1. predicts those lanes from the conserved quantities at launch
          (Kerr.pole_risk) and poisons them so they cost zero steps;
-      2. traces everything else in mu form (optionally capped at
-         `pass1_steps` for straggler containment — the capped lanes join
-         the retrace set);
-      3. gathers the poisoned/invalid/capped lanes into fixed `slots` and
+      2. traces everything else in mu form;
+      3. gathers the poisoned/invalid lanes into fixed `slots` and
          re-traces them in theta form at full depth, then scatters back.
 
-    All inside one jitted program. backend: 'xla' | 'pallas'.
+    All inside one jitted XLA program.
     dynamic_params: optional traced (M, a) — metric is then a placeholder
-    (recompilation-free parameter sweeps; works on both backends) — or
-    traced (M, a, r_obs): the observer radius joins the traced carry too
-    (flyby/approach sequences; the static `r_obs` argument is then only
-    a compile-key placeholder, but `lambda_max` must still bound the
-    LARGEST radius of the sweep, e.g. max(5000, 6 * r_obs_max)).
+    (recompilation-free parameter sweeps) — or traced (M, a, r_obs): the
+    observer radius joins the traced carry too (flyby/approach sequences;
+    the static `r_obs` argument is then only a compile-key placeholder,
+    but `lambda_max` must still bound the LARGEST radius of the sweep,
+    e.g. max(5000, 6 * r_obs_max)).
     Falls back to pure theta form when the observer is nearly polar
     (sin(theta_obs) < 0.1: most of the grid would be pole-risk anyway).
     """
@@ -1317,32 +1301,16 @@ def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
     eff_r_obs = (jnp.asarray(dynamic_params[2], alphas.dtype) if dyn_r
                  else float(r_obs))
 
-    def run(al, th, rf, form, steps, fi=None, unconv=False, rows=None):
-        if backend == "pallas":
-            from light_path_tracer_tpu.ops.pallas.kerr_trace_kernel \
-                import trace_rays_kerr_pallas
-            kw = {} if rows is None else dict(tile_rows=rows)
-            return trace_rays_kerr_pallas(
-                metric, float(r_obs), al, th, float(theta_obs), rf,
-                float(lambda_max), steps, event_interp=event_interp,
-                return_unconverged=unconv, dynamic_params=dynamic_params,
-                formulation=form, force_invalid=fi, precision=precision,
-                method=method, **kw)
-        res = _trace_rays_kerr_impl(
+    def run(al, th, rf, form, fi=None):
+        return _trace_rays_kerr_impl(
             eff_metric, eff_r_obs, al, th, float(theta_obs), rf,
-            float(lambda_max), steps, event_interp, True, form, fi,
+            float(lambda_max), max_steps, event_interp, True, form, fi,
             precision, method)
-        if unconv:
-            # The XLA whole-batch loop has no per-tile cap semantics;
-            # nothing is left running when it returns.
-            return res, jnp.zeros(al.shape, bool)
-        return res
 
     if abs(math.sin(float(theta_obs))) < 0.1:
         # Nearly-polar observer: most rays hug the axis; mu form would
         # reroute nearly everything, so integrate it all in theta form.
-        kw = {} if tile_rows is None else dict(rows=tile_rows)
-        return run(alphas, thetas, axis_refine, "theta", max_steps, **kw)
+        return run(alphas, thetas, axis_refine, "theta")
 
     n = int(alphas.shape[0])
     risk = eff_metric.pole_risk(
@@ -1361,26 +1329,11 @@ def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
     idx_r = jnp.nonzero(risk, size=slots, fill_value=n)[0]
     poison = jnp.zeros((n,), bool).at[idx_r].set(True, mode="drop")
 
-    p1 = max_steps if pass1_steps is None else min(pass1_steps, max_steps)
-    if backend == "pallas":
-        res_a, unconv = run(alphas, thetas, axis_refine, "mu", p1,
-                            fi=poison, unconv=True, rows=tile_rows)
-    else:
-        res_a = run(alphas, thetas, axis_refine, "mu", max_steps,
-                    fi=poison)
-        unconv = jnp.zeros(alphas.shape, bool)
+    res_a = run(alphas, thetas, axis_refine, "mu", fi=poison)
 
-    redo = poison | (res_a.status == INVALID) | unconv
+    redo = poison | (res_a.status == INVALID)
     idx = jnp.nonzero(redo, size=slots, fill_value=0)[0]
-
-    # Pass-B tile width: grid iterations run sequentially on a
-    # TensorCore, so wide tiles (more lanes, fewer serial tiles) win
-    # once slots is more than a few thousand rays.
-    rows_b = None
-    if backend == "pallas":
-        rows_b = 8 if slots <= 8192 else 32
-    res_b = run(alphas[idx], thetas[idx], axis_refine[idx], "theta",
-                max_steps, rows=rows_b)
+    res_b = run(alphas[idx], thetas[idx], axis_refine[idx], "theta")
 
     take = redo[idx]
     fa = res_a.final_alpha.at[idx].set(

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the geodesic hot loop."""
+"""Pallas kernels (Triton route, GPU) for the geodesic hot loop."""

@@ -1,68 +1,55 @@
-"""Fused whole-trace Pallas TPU kernel for the Kerr geodesic hot loop.
+"""Fused whole-trace Pallas kernel (Triton route) for the Kerr hot loop.
 
-BASELINE.json's target kernel: the reference's per-ray adaptive integrator
-(metrics.py:419-567) becomes one Pallas program per VMEM tile of rays. The
-*entire* integration — initial conditions, every DP45 stage of every step,
-event interpolation — runs with the ray state resident in VMEM; HBM sees
-exactly one read of the screen-angle inputs and one write of the final
-state. Per-tile `lax.while_loop`s exit as soon as *their* rays finish, so
-tiles of easy far-field rays stop early while photon-ring tiles keep
-integrating — grid-level divergence containment with zero dispatch
-overhead (the TPU analogue of active-ray compaction).
+One program per 1-D block of `block` rays runs the *entire* adaptive
+integration — initial conditions, every DP45 stage of every step, event
+interpolation, the disk-crossing recorder — with the ray state held in
+registers. Device memory sees one read of the screen-angle inputs and one
+write of the final state. Each block's `lax.while_loop` exits as soon as
+*its* rays finish, so blocks of easy far-field rays free their SM early
+while photon-ring blocks keep integrating; the XLA path instead advances
+the whole grid until its slowest lane is done.
 
-The numerics are byte-identical to the XLA path: both call
+The numerics are those of the XLA path: both call
 ops.kerr_trace.dp45_integrate, which is shape-polymorphic over the ray
-axes. Tested against the XLA path in tests/test_pallas.py.
+axis. float32 only; float64 stays on the XLA path. Tested against the XLA
+path in tests/test_pallas.py (Triton interpret mode on the CPU, and a
+CUDA lowering check).
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from light_path_tracer_tpu.ops.kerr_trace import (
     dp45_integrate, finalize_angles, get_tols, _h_init_for,
-    RUNNING, INVALID, ESCAPED, CAPTURED)
+    RUNNING, INVALID)
 from light_path_tracer_tpu.ops.types import TraceResult
 
-LANE = 128         # TPU vector lane width
-# Sublane rows per tile -> 8k rays/tile. Swept on a v5e for the 1024^2
-# Kerr shadow workload: 64 rows edges out 16/32/128/256 when rays are
-# difficulty-sorted (finer tiles exit sooner; grid overhead balances out).
-DEFAULT_ROWS = 64
+# Rays per program and warps per program (num_stages=1: the body is one
+# register-resident loop with nothing to pipeline). One ray per thread,
+# one warp per program: the finest early exit, and 76-80 registers a
+# thread with no spills. Swept on an H100 over B in {32..256} x warps in
+# {1, 2, 4}; PERF.md has the table.
+BLOCK = 32
+NUM_WARPS = 1
 
 
-def _trace_tile_kernel(alpha_ref, theta_ref, refine_ref, valid_ref,
-                       plunge_ref, *refs,
-                       metric, r_obs, theta_obs, lambda_max, max_steps,
-                       event_interp, tols, disk_plane=None,
-                       max_disk_hits=2, dynamic_metric=False,
-                       dynamic_r=False, formulation="theta",
-                       method="dp45", record_momentum=False):
-    if dynamic_metric:
-        from light_path_tracer_tpu.models.kerr import TracedKerr
-        m_ref, a_ref = refs[0], refs[1]
-        n_scalar = 2
-        if dynamic_r:
-            # Flyby sequences: the observer radius rides SMEM too, so a
-            # whole approach animation reuses one compiled kernel.
-            r_obs = refs[2][0, 0]
-            n_scalar = 3
-        out_refs = refs[n_scalar:]
-        metric = TracedKerr(m_ref[0, 0], a_ref[0, 0])
-    else:
-        out_refs = refs
+def _trace_block_kernel(alpha_ref, theta_ref, refine_ref, valid_ref,
+                        plunge_ref, *out_refs, metric, r_obs, theta_obs,
+                        lambda_max, max_steps, event_interp, tols,
+                        disk_plane=None, max_disk_hits=2, method="dp45",
+                        record_momentum=False):
     (r_out, th_out, phi_out, pr_out, pth_out,
      status_out, steps_out) = out_refs[:7]
-    alphas = alpha_ref[:]
-    thetas = theta_ref[:]
-    refine = refine_ref[:] > 0.5
-    valid = valid_ref[:] > 0.5
+    alphas = alpha_ref[...]
+    thetas = theta_ref[...]
+    refine = refine_ref[...] > 0.5
+    valid = valid_ref[...] > 0.5
     dtype = alphas.dtype
 
     atol = jnp.where(refine, tols["atol_ref"], tols["atol"]).astype(dtype)
@@ -70,15 +57,13 @@ def _trace_tile_kernel(alpha_ref, theta_ref, refine_ref, valid_ref,
 
     y0, p_t, p_phi, invalid0 = metric.initial_conditions_5d(
         r_obs, alphas, thetas, theta_obs)
-    if formulation == "mu":
-        y0 = metric.state_to_mu(y0)
     status0 = jnp.where(invalid0 | ~valid, INVALID, RUNNING).astype(
         jnp.int32)
     # Certain-capture early-exit radii, precomputed by the wrapper (the
-    # Bardeen formula needs acos, which Mosaic doesn't lower); disabled
-    # in disk mode, where custom inner radii could otherwise clip
-    # legitimate plane crossings.
-    r_plunge = plunge_ref[:] if disk_plane is None else None
+    # Bardeen formula needs acos, which the Triton route does not
+    # lower); disabled in disk mode, where custom inner radii could
+    # otherwise clip legitimate plane crossings.
+    r_plunge = plunge_ref[...] if disk_plane is None else None
 
     result = dp45_integrate(
         metric, y0, p_t, p_phi, status0,
@@ -90,386 +75,157 @@ def _trace_tile_kernel(alpha_ref, theta_ref, refine_ref, valid_ref,
         lambda_max=lambda_max, h_init=_h_init_for(r_obs, dtype),
         max_steps=max_steps, event_interp=event_interp,
         disk_plane=disk_plane, max_disk_hits=max_disk_hits,
-        r_plunge=r_plunge, formulation=formulation, method=method,
+        r_plunge=r_plunge, method=method,
         record_momentum=record_momentum)
     if disk_plane is not None:
         y_f, status_f, _lam_f, steps, hits = result
-        hitn_out = out_refs[7]
-        hitn_out[:] = hits["n"]
+        out_refs[7][...] = hits["n"]
         for slot in range(max_disk_hits):
-            out_refs[8 + slot][:] = hits["r"][slot]
-            out_refs[8 + max_disk_hits + slot][:] = hits["phi"][slot]
+            out_refs[8 + slot][...] = hits["r"][slot]
+            out_refs[8 + max_disk_hits + slot][...] = hits["phi"][slot]
             if record_momentum:
-                out_refs[8 + 2 * max_disk_hits + slot][:] = (
+                out_refs[8 + 2 * max_disk_hits + slot][...] = (
                     hits["pr"][slot])
-                out_refs[8 + 3 * max_disk_hits + slot][:] = (
+                out_refs[8 + 3 * max_disk_hits + slot][...] = (
                     hits["pth"][slot])
     else:
         y_f, status_f, _lam_f, steps = result
-    # NOTE: in mu-formulation the state is written out as
-    # (r, mu, phi, p_r, p_mu); the wrapper converts back to theta-form
-    # (state_from_mu needs acos, which Mosaic does not lower).
 
-    r_out[:] = y_f[0]
-    th_out[:] = y_f[1]
-    phi_out[:] = y_f[2]
-    pr_out[:] = y_f[3]
-    pth_out[:] = y_f[4]
-    status_out[:] = status_f
-    steps_out[:] = jnp.full(steps_out.shape, steps, jnp.int32)
+    r_out[...] = y_f[0]
+    th_out[...] = y_f[1]
+    phi_out[...] = y_f[2]
+    pr_out[...] = y_f[3]
+    pth_out[...] = y_f[4]
+    status_out[...] = status_f
+    steps_out[...] = jnp.full(steps_out.shape, steps, jnp.int32)
+
+
+def _run_blocks(kernel, n, alphas, thetas, refine, plunge, n_extra_i32,
+                n_extra_f32, block, num_warps, interpret):
+    """Pad the (N,) inputs to whole blocks (padding lanes are masked
+    invalid and cost no integration steps), launch one program per block
+    and return the unpadded outputs plus the summed per-block step count."""
+    dtype = alphas.dtype
+    n_pad = max(1, -(-n // block)) * block
+    n_blocks = n_pad // block
+
+    def pad(x, fill):
+        return jnp.concatenate(
+            [x, jnp.full((n_pad - n,), fill, x.dtype)]) if n_pad > n else x
+
+    inputs = (pad(alphas, 0.1), pad(thetas, 0.0), pad(refine, 0.0),
+              pad(jnp.ones((n,), dtype), 0.0), pad(plunge, 0.0))
+    spec = pl.BlockSpec((block,), lambda i: (i,))
+    f32 = jax.ShapeDtypeStruct((n_pad,), dtype)
+    i32 = jax.ShapeDtypeStruct((n_pad,), jnp.int32)
+    out_shape = ((f32,) * 5 + (i32,) * (2 + n_extra_i32)
+                 + (f32,) * n_extra_f32)
+    outs = pl.pallas_call(
+        kernel,
+        grid=(n_blocks,),
+        in_specs=[spec] * len(inputs),
+        out_specs=(spec,) * len(out_shape),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=1),
+        interpret=interpret,
+        name="kerr_trace_block",
+    )(*inputs)
+    # n_steps = loop iterations summed over independently scheduled
+    # blocks (every lane of a block carries its block's count) — the
+    # cross-backend contract of ops/types.py.
+    n_steps = jnp.sum(outs[6].reshape(n_blocks, block)[:, 0])
+    return [o[:n] for o in outs], n_steps
+
+
+def _check_f32(dtype):
+    if dtype != jnp.float32:
+        raise ValueError("pallas path is float32-only; got " + str(dtype))
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("metric", "r_obs", "theta_obs", "lambda_max",
-                     "max_steps", "event_interp", "tile_rows", "interpret",
-                     "return_unconverged", "formulation", "precision",
-                     "method"))
+                     "max_steps", "event_interp", "block", "num_warps",
+                     "interpret", "precision", "method"))
 def trace_rays_kerr_pallas(metric, r_obs, alphas, thetas, theta_obs,
                            axis_refine, lambda_max: float,
                            max_steps: int = 200000,
                            event_interp: str = "hermite",
-                           tile_rows: int = DEFAULT_ROWS,
+                           block: int = BLOCK,
+                           num_warps: int = NUM_WARPS,
                            interpret: bool = False,
-                           return_unconverged: bool = False,
-                           dynamic_params=None,
-                           formulation: str = "theta",
-                           force_invalid=None,
                            precision: str = "fast",
                            method: str = "dp45"):
-    """Pallas-fused Kerr batch tracer; drop-in for trace_rays_kerr.
-
-    float32 only (the TPU-native precision tier; use the XLA path for
-    float64 oracle runs). Rays are padded to a whole number of
-    (tile_rows, 128) tiles; padding lanes are masked invalid and cost no
-    integration steps.
-
-    dynamic_params: optional traced (M, a) jnp scalars — the metric
-    parameters enter the kernel through SMEM instead of being folded into
-    compiled constants, so spin/mass sweeps reuse one compiled program
-    (`metric` is then only an API placeholder) — or traced (M, a, r_obs)
-    for flyby sequences (the static `r_obs` is then only a placeholder;
-    `lambda_max` must bound the largest radius of the sweep).
-    """
+    """Fused-kernel Kerr batch tracer; drop-in for trace_rays_kerr."""
     dtype = alphas.dtype
-    if dtype != jnp.float32:
-        raise ValueError("pallas path is float32-only; got " + str(dtype))
-    tols = get_tols(dtype, precision)
-    if dynamic_params is not None:
-        from light_path_tracer_tpu.models.kerr import TracedKerr
-        eff_metric = TracedKerr(
-            jnp.asarray(dynamic_params[0], dtype),
-            jnp.asarray(dynamic_params[1], dtype))
-    else:
-        eff_metric = metric
-    dyn_r = dynamic_params is not None and len(dynamic_params) >= 3
-    eff_r_obs = (jnp.asarray(dynamic_params[2], dtype) if dyn_r
-                 else float(r_obs))
-
+    _check_f32(dtype)
     n = alphas.shape[0]
-    tile = tile_rows * LANE
-    n_pad = max(1, -(-n // tile)) * tile
-    n_tiles = n_pad // tile
-
-    def pad(x, fill):
-        return jnp.concatenate(
-            [x, jnp.full((n_pad - n,), fill, x.dtype)]) if n_pad > n else x
-
-    alphas_p = pad(alphas, 0.1).reshape(n_tiles * tile_rows, LANE)
-    thetas_p = pad(thetas, 0.0).reshape(n_tiles * tile_rows, LANE)
-    refine_p = pad(axis_refine.astype(dtype), 0.0).reshape(
-        n_tiles * tile_rows, LANE)
-    valid = jnp.ones((n,), dtype)
-    if force_invalid is not None:
-        # Hybrid-tracer poisoning (see trace_rays_kerr_hybrid): these
-        # lanes freeze at step 0; whole-risk tiles exit immediately.
-        valid = jnp.where(force_invalid, 0.0, valid)
-    valid_p = pad(valid, 0.0).reshape(n_tiles * tile_rows, LANE)
-
     kernel = functools.partial(
-        _trace_tile_kernel, metric=metric, r_obs=float(r_obs),
+        _trace_block_kernel, metric=metric, r_obs=float(r_obs),
         theta_obs=float(theta_obs), lambda_max=float(lambda_max),
-        max_steps=max_steps, event_interp=event_interp, tols=tols,
-        dynamic_metric=dynamic_params is not None, dynamic_r=dyn_r,
-        formulation=formulation, method=method)
-
-    block = pl.BlockSpec((tile_rows, LANE), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((n_tiles * tile_rows, LANE), dtype)
-    i32 = jax.ShapeDtypeStruct((n_tiles * tile_rows, LANE), jnp.int32)
-
-    plunge = eff_metric.plunge_radii(
-        eff_r_obs, alphas, thetas, float(theta_obs)).astype(dtype)
-    plunge_p = pad(plunge, 0.0).reshape(n_tiles * tile_rows, LANE)
-
-    in_specs = [block, block, block, block, block]
-    inputs = (alphas_p, thetas_p, refine_p, valid_p, plunge_p)
-    if dynamic_params is not None:
-        scalar_spec = pl.BlockSpec((1, 1), lambda i: (0, 0),
-                                   memory_space=pltpu.SMEM)
-        n_scalar = 3 if dyn_r else 2
-        in_specs += [scalar_spec] * n_scalar
-        inputs += tuple(
-            jnp.reshape(jnp.asarray(dynamic_params[k], dtype), (1, 1))
-            for k in range(n_scalar))
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=in_specs,
-        out_specs=(block,) * 7,
-        out_shape=(f32, f32, f32, f32, f32, i32, i32),
-        interpret=interpret,
-    )(*inputs)
-
-    # n_steps = total lock-step loop iterations summed over independently
-    # scheduled tiles (one value per tile; every lane of a tile carries the
-    # same count). Matches the XLA path's while_loop count when there is
-    # one tile — the cross-backend contract (ops/types.py).
-    n_steps = jnp.sum(outs[6].reshape(n_tiles, -1)[:, 0])
-    r_f, th_f, phi_f, pr_f, pth_f, status_f, _steps = (
-        o.reshape(n_pad)[:n] for o in outs)
-    if formulation == "mu":
-        # Kernel wrote the mu-state; convert to theta-form for extraction.
-        r_f, th_f, phi_f, pr_f, pth_f = eff_metric.state_from_mu(
-            (r_f, th_f, phi_f, pr_f, pth_f))
+        max_steps=max_steps, event_interp=event_interp,
+        tols=get_tols(dtype, precision), method=method)
+    plunge = metric.plunge_radii(
+        float(r_obs), alphas, thetas, float(theta_obs)).astype(dtype)
+    outs, n_steps = _run_blocks(
+        kernel, n, alphas, thetas, axis_refine.astype(dtype), plunge,
+        0, 0, block, num_warps, interpret)
 
     # Extraction outside the kernel (one cheap vectorized pass).
-    _y0, p_t, p_phi, _inv = eff_metric.initial_conditions_5d(
-        eff_r_obs, alphas, thetas, float(theta_obs))
+    _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
+        float(r_obs), alphas, thetas, float(theta_obs))
     final_alpha, n_half, status_out = finalize_angles(
-        eff_metric, (r_f, th_f, phi_f, pr_f, pth_f), p_t, p_phi, status_f)
-    result = TraceResult(final_alpha, n_half, status_out, n_steps)
-    if return_unconverged:
-        # Raw RUNNING after the step budget = neither event fired nor
-        # lambda exhausted within max_steps; the two-pass driver
-        # re-traces these with the full budget.
-        return result, status_f == RUNNING
-    return result
+        metric, tuple(outs[:5]), p_t, p_phi, outs[5])
+    return TraceResult(final_alpha, n_half, status_out, n_steps)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("metric", "r_obs", "theta_obs", "lambda_max",
-                     "max_steps", "event_interp", "pass1_steps", "slots",
-                     "tile_rows", "interpret", "formulation", "precision",
-                     "method"))
-def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
-                             axis_refine, lambda_max: float,
-                             max_steps: int = 200000,
-                             event_interp: str = "hermite",
-                             pass1_steps: int = 512, slots: int = 8192,
-                             tile_rows: int = DEFAULT_ROWS,
-                             interpret: bool = False,
-                             dynamic_params=None,
-                             formulation: str = "theta",
-                             precision: str = "fast",
-                             method: str = "dp45"):
-    """Straggler-robust tracing: a cheap capped pass over all rays, then a
-    full-depth second pass over only the unconverged ones.
-
-    A single photon-ring grazer can need thousands of adaptive steps and
-    pin its whole tile; pass 1 caps every tile at `pass1_steps`, and the
-    (typically handful of) rays still running are gathered into fixed
-    `slots`, re-traced from scratch with the full budget on the XLA path,
-    and scattered back — all inside one jitted program (no host sync).
-    If more than `slots` rays are unconverged the extras keep their
-    pass-1 result; size `slots` generously (default 8192 ~= one tile).
-    """
-    res1, unconv = trace_rays_kerr_pallas(
-        metric, r_obs, alphas, thetas, theta_obs, axis_refine,
-        lambda_max, pass1_steps, event_interp=event_interp,
-        tile_rows=tile_rows, interpret=interpret,
-        return_unconverged=True, dynamic_params=dynamic_params,
-        formulation=formulation, precision=precision, method=method)
-
-    n = alphas.shape[0]
-    slots = min(slots, n)
-    idx = jnp.nonzero(unconv, size=slots, fill_value=0)[0]
-    # Pass 2 on minimal Pallas tiles: a (8, 128) tile is one vreg row per
-    # op, so the deep re-integration of the few stragglers costs ~lane/64
-    # of a full-width pass per step.
-    res2 = trace_rays_kerr_pallas(
-        metric, r_obs, alphas[idx], thetas[idx], theta_obs,
-        axis_refine[idx], lambda_max, max_steps,
-        event_interp=event_interp, tile_rows=8,
-        interpret=interpret, dynamic_params=dynamic_params,
-        formulation=formulation, precision=precision, method=method)
-
-    take = unconv[idx]
-    fa = res1.final_alpha.at[idx].set(
-        jnp.where(take, res2.final_alpha, res1.final_alpha[idx]))
-    nh = res1.n_half_orbits.at[idx].set(
-        jnp.where(take, res2.n_half_orbits, res1.n_half_orbits[idx]))
-    st = res1.status.at[idx].set(
-        jnp.where(take, res2.status, res1.status[idx]))
-    return TraceResult(fa, nh, st, res1.n_steps + res2.n_steps)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("metric", "r_obs", "theta_obs", "lambda_max",
-                     "max_steps", "disk_plane", "max_disk_hits",
-                     "tile_rows", "interpret", "formulation",
-                     "precision", "method", "return_unconverged",
+                     "max_steps", "disk_plane", "max_disk_hits", "block",
+                     "num_warps", "interpret", "precision", "method",
                      "record_momentum"))
 def trace_disk_rays_pallas(metric, r_obs, alphas, thetas, theta_obs,
                            lambda_max: float, max_steps: int,
                            disk_plane, max_disk_hits: int = 2,
-                           tile_rows: int = DEFAULT_ROWS,
+                           block: int = BLOCK,
+                           num_warps: int = NUM_WARPS,
                            interpret: bool = False,
-                           formulation: str = "theta",
                            precision: str = "fast",
                            method: str = "dp45",
-                           return_unconverged: bool = False,
                            record_momentum: bool = False):
-    """Pallas-fused disk-mode tracer: DP45 + equatorial-crossing recording
+    """Fused-kernel disk-mode tracer: DP45 + equatorial-crossing recording
     in one kernel. Returns the disk.DiskTraceResult tuple — the same
     contract as disk.trace_disk_rays."""
     dtype = alphas.dtype
-    if dtype != jnp.float32:
-        raise ValueError("pallas path is float32-only; got " + str(dtype))
-    if formulation != "theta":
-        # The mu chart folds the theta double cover, losing the branch
-        # needed for the physical crossing azimuth (and this wrapper's
-        # extraction would also need the state_from_mu conversion).
-        raise ValueError("disk mode supports formulation='theta' only")
-    tols = get_tols(dtype, precision)
-
+    _check_f32(dtype)
     n = alphas.shape[0]
-    tile = tile_rows * LANE
-    n_pad = max(1, -(-n // tile)) * tile
-    n_tiles = n_pad // tile
-
-    def pad(x, fill):
-        return jnp.concatenate(
-            [x, jnp.full((n_pad - n,), fill, x.dtype)]) if n_pad > n else x
-
-    alphas_p = pad(alphas, 0.1).reshape(n_tiles * tile_rows, LANE)
-    thetas_p = pad(thetas, 0.0).reshape(n_tiles * tile_rows, LANE)
-    refine_p = jnp.zeros((n_tiles * tile_rows, LANE), dtype)
-    valid_p = pad(jnp.ones((n,), dtype), 0.0).reshape(
-        n_tiles * tile_rows, LANE)
-    plunge_p = jnp.zeros((n_tiles * tile_rows, LANE), dtype)  # unused
-
     kernel = functools.partial(
-        _trace_tile_kernel, metric=metric, r_obs=float(r_obs),
+        _trace_block_kernel, metric=metric, r_obs=float(r_obs),
         theta_obs=float(theta_obs), lambda_max=float(lambda_max),
-        max_steps=max_steps, event_interp="hermite", tols=tols,
-        disk_plane=disk_plane, max_disk_hits=max_disk_hits,
-        formulation=formulation, method=method,
+        max_steps=max_steps, event_interp="hermite",
+        tols=get_tols(dtype, precision), disk_plane=disk_plane,
+        max_disk_hits=max_disk_hits, method=method,
         record_momentum=record_momentum)
-
-    block = pl.BlockSpec((tile_rows, LANE), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((n_tiles * tile_rows, LANE), dtype)
-    i32 = jax.ShapeDtypeStruct((n_tiles * tile_rows, LANE), jnp.int32)
-
+    zeros = jnp.zeros((n,), dtype)
     n_mom = 4 if record_momentum else 2
-    n_out = 7 + 1 + n_mom * max_disk_hits
-    outs = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[block] * 5,
-        out_specs=(block,) * n_out,
-        out_shape=(f32, f32, f32, f32, f32, i32, i32, i32)
-        + (f32,) * (n_mom * max_disk_hits),
-        interpret=interpret,
-    )(alphas_p, thetas_p, refine_p, valid_p, plunge_p)
+    outs, n_steps = _run_blocks(
+        kernel, n, alphas, thetas, zeros, zeros, 1,
+        n_mom * max_disk_hits, block, num_warps, interpret)
 
-    n_steps = jnp.sum(outs[6].reshape(n_tiles, -1)[:, 0])
-    flat = [o.reshape(n_pad)[:n] for o in outs]
-    status_f = flat[5]
-    hit_n = flat[7]
-    hit_r = tuple(flat[8 + s] for s in range(max_disk_hits))
-    hit_phi = tuple(flat[8 + max_disk_hits + s]
-                    for s in range(max_disk_hits))
-    hit_pr = tuple(flat[8 + 2 * max_disk_hits + s]
-                   for s in range(max_disk_hits
-                                  if record_momentum else 0))
-    hit_pth = tuple(flat[8 + 3 * max_disk_hits + s]
-                    for s in range(max_disk_hits
-                                   if record_momentum else 0))
+    k = max_disk_hits
+    hit_r = tuple(outs[8:8 + k])
+    hit_phi = tuple(outs[8 + k:8 + 2 * k])
+    hit_pr = tuple(outs[8 + 2 * k:8 + 3 * k]) if record_momentum else ()
+    hit_pth = tuple(outs[8 + 3 * k:8 + 4 * k]) if record_momentum else ()
 
     _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
         float(r_obs), alphas, thetas, float(theta_obs))
     final_alpha, n_half, status_out = finalize_angles(
-        metric, tuple(flat[:5]), p_t, p_phi, status_f)
+        metric, tuple(outs[:5]), p_t, p_phi, outs[5])
     from light_path_tracer_tpu.disk import DiskTraceResult
-    result = DiskTraceResult(status_out, hit_n, hit_r, p_phi, n_steps,
-                             final_alpha, n_half, hit_phi,
-                             pr_hits=hit_pr, pth_hits=hit_pth)
-    if return_unconverged:
-        # Raw RUNNING after the step budget: the two-pass driver
-        # re-traces these lanes at full depth.
-        return result, status_f == RUNNING
-    return result
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("metric", "r_obs", "theta_obs", "lambda_max",
-                     "max_steps", "disk_plane", "max_disk_hits",
-                     "pass1_steps", "slots", "tile_rows", "interpret",
-                     "formulation", "precision", "method",
-                     "record_momentum"))
-def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,
-                             lambda_max: float, max_steps: int,
-                             disk_plane, max_disk_hits: int = 2,
-                             pass1_steps: int = 512, slots: int = 8192,
-                             tile_rows: int = DEFAULT_ROWS,
-                             interpret: bool = False,
-                             formulation: str = "theta",
-                             precision: str = "fast",
-                             method: str = "dp45",
-                             record_momentum: bool = False):
-    """Straggler-robust disk-mode tracing (trace_rays_kerr_two_pass's
-    recipe with the crossing recorder active).
-
-    Jittered-AA grids land rays ever closer to the polar-axis plane
-    (conserved L -> 0), whose 1/sin^2 stiffness grinds thousands of
-    steps and pins whole tiles: a quarter-pixel subpixel offset
-    measured the single-pass 1024^2 disk trace at 0.19 Mrays/s vs 4.0
-    aligned (r3 diagnostic). Pass 1 caps every tile at `pass1_steps`;
-    the few still-RUNNING rays re-trace from scratch at full depth on
-    narrow (8, 128) tiles and their complete records (status, hits,
-    heading) scatter back. One jitted program, no host sync.
-    """
-    res1, unconv = trace_disk_rays_pallas(
-        metric, r_obs, alphas, thetas, theta_obs, lambda_max,
-        pass1_steps, disk_plane, max_disk_hits, tile_rows=tile_rows,
-        interpret=interpret, formulation=formulation,
-        precision=precision, method=method, return_unconverged=True,
-        record_momentum=record_momentum)
-
-    n = alphas.shape[0]
-    slots = min(slots, n)
-    idx = jnp.nonzero(unconv, size=slots, fill_value=0)[0]
-    res2 = trace_disk_rays_pallas(
-        metric, r_obs, alphas[idx], thetas[idx], theta_obs, lambda_max,
-        max_steps, disk_plane, max_disk_hits, tile_rows=8,
-        interpret=interpret, formulation=formulation,
-        precision=precision, method=method,
-        record_momentum=record_momentum)
-
-    take = unconv[idx]
-
-    def scatter(a1, a2):
-        return a1.at[idx].set(jnp.where(take, a2, a1[idx]))
-
-    from light_path_tracer_tpu.disk import DiskTraceResult
-    return DiskTraceResult(
-        scatter(res1.status, res2.status),
-        scatter(res1.n_hits, res2.n_hits),
-        tuple(scatter(a, b) for a, b in zip(res1.r_hits, res2.r_hits)),
-        res1.xi,
-        res1.n_steps + res2.n_steps,
-        scatter(res1.final_alpha, res2.final_alpha),
-        scatter(res1.n_half, res2.n_half),
-        tuple(scatter(a, b) for a, b in zip(res1.phi_hits,
-                                            res2.phi_hits)),
-        res1.xi_hits,
-        tuple(scatter(a, b) for a, b in zip(res1.pr_hits,
-                                            res2.pr_hits)),
-        tuple(scatter(a, b) for a, b in zip(res1.pth_hits,
-                                            res2.pth_hits)))
+    return DiskTraceResult(status_out, outs[7], hit_r, p_phi, n_steps,
+                           final_alpha, n_half, hit_phi,
+                           pr_hits=hit_pr, pth_hits=hit_pth)

@@ -1,6 +1,6 @@
 """Batched Schwarzschild orbit-equation tracer.
 
-TPU-native replacement for the reference's per-ray Numba loop
+Batched replacement for the reference's per-ray Numba loop
 (/root/reference/metrics.py:50-145): one `lax.while_loop` advances the
 *entire* ray batch in lock-step through the reduced 2-D orbit ODE
 u''(phi) = -u + 3 M u^2 with fixed-step RK4, per-lane masked
@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 from light_path_tracer_tpu.ops.types import TraceResult
 
-# np.int32, not Python int — same x64/Mosaic lowering hazard as
+# np.int32, not Python int — same x64 promotion hazard as
 # ops.kerr_trace (see the comment on its status constants).
 RUNNING = np.int32(2)
 ESCAPED = np.int32(1)

@@ -201,7 +201,8 @@ def _pano_render_core(source_pano, theta_lookup, final_alpha_lookup,
     if winding_overlay:
         palette = jnp.asarray(WINDING_COLORS)
         if grayscale:
-            palette = (palette @ jnp.asarray(_LUMA))[:, None]
+            palette = jnp.matmul(palette, jnp.asarray(_LUMA),
+                                 precision=jax.lax.Precision.HIGHEST)[:, None]
         elif channels < 3:
             palette = palette[:, :channels]
         elif channels > 3:
@@ -323,7 +324,6 @@ def _pano_precompute(scene, cfg, image_dimension, mesh=None):
             sort_by_difficulty=cfg.sort_by_difficulty,
             max_steps=cfg.max_steps, backend=cfg.backend,
             integrator=cfg.integrator, event_interp=cfg.event_interp,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps,
             formulation=cfg.formulation, precision=cfg.precision,
             progress=cfg.progress)
         fa_rows = res.final_alpha.reshape(

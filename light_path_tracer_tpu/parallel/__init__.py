@@ -1,7 +1,7 @@
 """Multi-chip scaling: mesh construction + image-tile data parallelism.
 
-Single-host (ICI): parallel.tiles.trace_grid_sharded over a local Mesh.
-Multi-host (ICI+DCN): parallel.multihost — jax.distributed
+Single-host: parallel.tiles.trace_grid_sharded over a local Mesh.
+Multi-host: parallel.multihost — jax.distributed
 initialization, global mesh, and trace_grid_multihost (validated with
 2 CPU processes x 4 virtual devices in tests/test_multihost.py).
 """

@@ -32,6 +32,10 @@ than the reference's ProcessPoolExecutor row farm
 (/root/reference/debugging_image_lense.py:530-592), which loses all
 completed work when the parent dies. Recipe + failure-mode table in
 docs/scaling.md "Elastic recovery".
+
+On a GPU host give each worker its own card (CUDA_VISIBLE_DEVICES=<i>):
+a JAX process reserves most of a card's memory when it starts, so a
+second worker on the same card fails for want of memory.
 """
 
 from __future__ import annotations
@@ -111,7 +115,7 @@ def render_shadow_elastic(scene: SceneConfig, resolution, store_dir,
             max_steps=cfg.max_steps, backend=cfg.backend,
             integrator=(cfg.integrator if cfg.integrator != "rk4"
                         else "dp45"),
-            precision=cfg.precision, two_pass=cfg.two_pass,
+            precision=cfg.precision,
             sort_by_difficulty=False)
         # Block before the store write: an atomic rename must not land
         # before the arrays are materialized.

@@ -1,10 +1,11 @@
 """Device mesh construction for image-tile data parallelism.
 
 The reference's only cross-worker parallelism is ProcessPoolExecutor rows
-(debugging_image_lense.py:530-592); the TPU-native equivalent is a
-`jax.sharding.Mesh` over the chips of a slice with the pixel grid sharded
-across it. Ray tracing is embarrassingly parallel, so the layout goal is
-simply: every collective that does exist (the final tile gather) rides ICI.
+(debugging_image_lense.py:530-592); the equivalent here is a
+`jax.sharding.Mesh` over the GPUs with the pixel grid sharded across it.
+Ray tracing is embarrassingly parallel, and the cards of one host are
+joined all to all, so a 1-D mesh is the whole layout: the only collective
+(the final tile gather) rides NVLink.
 """
 
 from __future__ import annotations

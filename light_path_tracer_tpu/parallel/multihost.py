@@ -2,18 +2,21 @@
 
 Completes SURVEY.md §5's distributed-backend item: the reference's only
 cross-worker mechanism is a single-host ProcessPoolExecutor row farm
-(/root/reference/debugging_image_lense.py:530-592). The TPU-native
-equivalent is `jax.distributed` + a global mesh over every chip of every
-host:
+(/root/reference/debugging_image_lense.py:530-592). The equivalent here
+is `jax.distributed` + a global mesh over every GPU of every host:
 
-  * intra-slice (ICI): the pixel grid is sharded row-wise exactly as the
-    single-host path (parallel/tiles.py) — each chip integrates its own
-    rows in its own lock-step loop, no collective in the hot loop.
-  * cross-host (DCN): only two things ever cross it — the
+  * within a host: the pixel grid is sharded row-wise exactly as the
+    single-host path (parallel/tiles.py) — each card integrates its own
+    rows in its own trace, no collective in the hot loop.
+  * across hosts: only two things ever cross the network — the
     jax.distributed control plane at startup, and the final image
     gather (`process_allgather`), a few MB once per render. Ray tracing
-    is embarrassingly parallel, so the DCN topology assumption is
-    simply "reachable"; no bandwidth-critical collective exists.
+    is embarrassingly parallel, so the network assumption is simply
+    "reachable"; no bandwidth-critical collective exists.
+
+One process per GPU: a JAX process reserves most of a card's memory when
+it starts, so each worker process gets its own card
+(CUDA_VISIBLE_DEVICES=<i>, or local_device_ids=[i]).
 
 Tested without real hardware the standard way: two CPU processes x 4
 virtual devices each, gloo collectives (tests/test_multihost.py), with
@@ -38,10 +41,10 @@ def initialize_multihost(coordinator_address: str | None = None,
                          heartbeat_timeout_s: float | None = None):
     """Join (or start, for process 0) the jax.distributed control plane.
 
-    Must run before any other JAX call in the process. On real
-    multi-host TPU pods the arguments are auto-detected from the
-    environment and may all be None; for the CPU test recipe pass them
-    explicitly. Idempotent: repeated calls are ignored.
+    Must run before any other JAX call in the process. Pass
+    coordinator_address ("host:port"), num_processes and process_id
+    explicitly: nothing on a plain GPU host tells JAX of a cluster.
+    Idempotent: repeated calls are ignored.
 
     timeout_s bounds the wait for the full cluster to join (default:
     jax's own 300 s); a missing peer then fails HERE with a clear
@@ -92,7 +95,7 @@ def initialize_multihost(coordinator_address: str | None = None,
 
 
 def make_global_mesh(axis_name: str = "tiles") -> Mesh:
-    """1-D mesh over every device of every process (ICI+DCN)."""
+    """1-D mesh over every device of every process."""
     return Mesh(np.array(jax.devices()), (axis_name,))
 
 

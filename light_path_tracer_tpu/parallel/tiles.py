@@ -4,7 +4,8 @@ BASELINE.json config 5's pattern: the pixel grid is sharded row-wise across
 the mesh's `tiles` axis with `shard_map`; each device runs its *own*
 lock-step `lax.while_loop` over its tile, so a tile whose rays all finish
 early exits early — no global per-iteration sync, no collective in the hot
-loop. The only communication is XLA's implicit output gather (ICI).
+loop. The only communication is XLA's implicit output gather (NVLink
+between the cards of one host).
 
 Single-device results are bitwise identical to the sharded results (tested
 in tests/test_sharding.py on a virtual 8-device CPU mesh).
@@ -41,8 +42,8 @@ def _mesh_sync(mesh, outputs):
     starve one participant thread while the main thread is busy tracing
     the NEXT program — observed as `InProcessCommunicator::AllReduce …
     only 7 of 8 arrived` killing the test suite. Blocking on the
-    outputs before returning removes the overlap; real TPU meshes keep
-    full async dispatch.
+    outputs before returning removes the overlap; GPU meshes keep full
+    async dispatch.
     """
     if mesh.devices.flat[0].platform == "cpu":
         jax.block_until_ready(outputs)

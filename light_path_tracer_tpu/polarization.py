@@ -284,7 +284,6 @@ def _trace_disk_momentum(metric, scene, cfg, disk, alpha, theta,
         scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
         cfg.max_steps, disk, backend=cfg.backend,
         precision=cfg.precision, method=cfg.integrator,
-        two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps,
         record_momentum=True)
 
 
@@ -734,29 +733,11 @@ def render_polarized_volumetric(scene: SceneConfig, resolution,
                 precision=cfg.precision, method=cfg.integrator,
                 sat_window=cfg.sat_window, sat_monitor=(0, 1, 2))
         else:
-            from light_path_tracer_tpu.ops.batch import _kerr_backend
-            if _kerr_backend(cfg.backend, alpha.dtype,
-                             metric) == "pallas":
-                # Round-4 fast tier: Stokes (I, Q, U) transport on the
-                # generic coupled-extras VMEM tile kernel, with the
-                # four camera-side Walker-Penrose constants riding
-                # per-ray aux input tiles; two_pass "auto" = ON
-                # (straggler containment, exact merge).
-                if cfg.two_pass is False:
-                    from light_path_tracer_tpu.ops.pallas \
-                        .volumetric_kernel import (
-                            trace_rays_aux_pallas as aux_fn)
-                else:
-                    from light_path_tracer_tpu.ops.pallas \
-                        .volumetric_kernel import (
-                            trace_rays_aux_two_pass as aux_fn)
-            else:
-                aux_fn = trace_rays_aux
             # Saturation monitor: all three Stokes path integrals
             # (I, Q, U) — Q/U oscillate in sign along a whirl, but the
             # exit requires EVERY component bitwise-frozen, so a lane
             # still depolarizing cannot exit.
-            res = aux_fn(
+            res = trace_rays_aux(
                 metric, scene.r_obs, alpha, theta, scene.theta_obs,
                 transfer_fn, 3, (k11, k21, k12, k22),
                 max(5000.0, 6.0 * scene.r_obs), cfg.max_steps,

@@ -14,7 +14,7 @@ edge cases:
     render_loop_around is set (image_lens.py:354-365 — including the legacy
     quirk that behind-camera rays sample from the image-center pixel).
 
-TPU-native design: a single jitted gather program — boolean masks +
+Array design: a single jitted gather program — boolean masks +
 `jnp.where` select between shadow / winding color / texture gather /
 sentinel; the texture fetch is one flat `take` on clamped indices.
 """
@@ -111,7 +111,8 @@ def _render_core(source_image, theta_lookup, final_alpha_lookup,
     # -- winding color layer --
     palette = jnp.asarray(WINDING_COLORS)
     if grayscale:
-        palette = (palette @ jnp.asarray(_LUMA))[:, None]
+        palette = jnp.matmul(palette, jnp.asarray(_LUMA),
+                                 precision=jax.lax.Precision.HIGHEST)[:, None]
     elif channels < 3:
         palette = palette[:, :channels]
     elif channels > 3:
@@ -159,8 +160,8 @@ def _render_core(source_image, theta_lookup, final_alpha_lookup,
     src_flat = src.reshape(height * width, channels)
     if sampling == "bilinear":
         # Continuous gather: image error then tracks angle error instead
-        # of plateauing at the nearest-texel flip floor (BASELINE.md
-        # "image gate"). The in_bounds/sentinel CLASSIFICATION above
+        # of plateauing at the nearest-texel flip floor (BASELINE.md,
+        # accuracy targets). The in_bounds/sentinel CLASSIFICATION above
         # stays the nearest rule for parity.
         texture = _bilinear_gather(src_flat, px, py, height, width,
                                    channels, wrap=render_loop_around)

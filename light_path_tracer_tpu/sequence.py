@@ -5,8 +5,7 @@ The static pipeline folds the camera pointing psi into compiled constants
 observer — that would recompile every frame; here psi is a *traced*
 argument instead, so the whole per-frame program (camera grids -> Kerr
 trace -> renderer) compiles once and every subsequent frame is a single
-dispatch. Measured steady-state frame cost ~= the single-frame compute
-cost (docs in BASELINE.md).
+dispatch.
 """
 
 from __future__ import annotations
@@ -35,17 +34,12 @@ def _render_frame_dynamic(psi_y, psi_x, source_image, *, metric, r_obs,
     dtype = jnp.float32
     alpha, theta = camera.build_angle_lookups_dynamic(
         resolution, fov, psi_y, psi_x, dtype=dtype, boost=boost)
-    # Hybrid tracer with the pass1 cap: a single photon-ring grazer can
-    # need thousands of adaptive steps; the capped mu-form pass plus the
-    # tiny full-depth theta retrace keeps every frame near the median
-    # cost (and handles pole-aimed rays when the camera pans across the
-    # axis).
-    from light_path_tracer_tpu.ops.batch import _kerr_backend
+    # Hybrid tracer: the mu-form bulk plus a theta-form retrace of the
+    # pole-aimed rays (the camera may pan across the axis).
     res = trace_rays_kerr_hybrid(
         metric, r_obs, alpha.ravel(), theta.ravel(), theta_obs,
         jnp.zeros(alpha.size, bool), max(5000.0, 6.0 * r_obs),
-        max_steps, backend=_kerr_backend("auto", dtype),
-        pass1_steps=512)
+        max_steps)
     fa = res.final_alpha.reshape(resolution)
     if shadow_only:
         return jnp.where(jnp.isnan(fa), 0.0, 1.0).astype(jnp.float32)
@@ -106,18 +100,14 @@ def render_sequence(scene: SceneConfig, psi_frames, source_image=None,
 def _shadow_frame_param_dynamic(psi_y, psi_x, M, a, *, r_obs, theta_obs,
                                 resolution, fov, max_steps,
                                 boost=(0.0, 0.0, 0.0)):
-    from light_path_tracer_tpu.ops.batch import _kerr_backend
     dtype = jnp.float32
     alpha, theta = camera.build_angle_lookups_dynamic(
         resolution, fov, psi_y, psi_x, dtype=dtype, boost=boost)
     placeholder = Kerr(M=1.0, a=0.0)   # API placeholder; params are traced
-    # Off-TPU this routes to the XLA path with TracedKerr (compiled speed),
-    # not a Pallas interpret-mode emulation.
     res = trace_rays_kerr_hybrid(
         placeholder, r_obs, alpha.ravel(), theta.ravel(), theta_obs,
         jnp.zeros(alpha.size, bool), max(5000.0, 6.0 * r_obs),
-        max_steps, backend=_kerr_backend("auto", dtype),
-        pass1_steps=512, dynamic_params=(M, a))
+        max_steps, dynamic_params=(M, a))
     fa = res.final_alpha.reshape(resolution)
     return jnp.where(jnp.isnan(fa), 0.0, 1.0).astype(jnp.float32)
 
@@ -132,14 +122,13 @@ def _flyby_frame_dynamic(psi_y, psi_x, M, a, r_obs, bx, by, bz,
                          loop_around):
     """One flyby frame with (psi, M, a, r_obs, boost) ALL traced.
 
-    The observer radius rides the trace as dynamic_params[2] (SMEM on
-    the Pallas backend) and the camera boost goes through the traced
+    The observer radius rides the trace as dynamic_params[2] and the
+    camera boost goes through the traced
     aberration map, so a whole approach/flyby animation — radius ramp +
     accelerating camera — is ONE compiled program. `lambda_max` is the
     static affine-parameter bound and must cover the LARGEST radius of
     the sweep (the caller passes max(5000, 6 * max r_obs)).
     """
-    from light_path_tracer_tpu.ops.batch import _kerr_backend
     dtype = jnp.float32
     psi_y = jnp.asarray(psi_y, dtype)
     psi_x = jnp.asarray(psi_x, dtype)
@@ -151,7 +140,6 @@ def _flyby_frame_dynamic(psi_y, psi_x, M, a, r_obs, bx, by, bz,
     res = trace_rays_kerr_hybrid(
         placeholder, 100.0, alpha.ravel(), theta.ravel(), theta_obs,
         jnp.zeros(alpha.size, bool), lambda_max, max_steps,
-        backend=_kerr_backend("auto", dtype), pass1_steps=512,
         dynamic_params=(jnp.asarray(M, dtype), jnp.asarray(a, dtype),
                         r_obs))
     fa = res.final_alpha.reshape(resolution)
@@ -180,7 +168,7 @@ def render_flyby(scene: SceneConfig, frames, source_image=None,
 
     Unlike render_sequence / render_param_sequence (static r_obs and
     boost folded into compiled constants), r_obs enters the trace as a
-    traced scalar (dynamic_params[2]; SMEM on the Pallas backend) and
+    traced scalar (dynamic_params[2]) and
     the boost goes through camera.aberrate_view_dynamic — so an
     approach animation costs one compile total. Escape radius (2 r_obs)
     and initial step size track the traced radius per frame; the affine

@@ -71,16 +71,11 @@ def _trace_disk_grid(scene, resolution, cfg, disk, timer, aa_samples=1,
         out.append((alpha, theta))
 
     with timer.stage("precompute") as out:
-        # Jittered grids (any aa_samples > 1) force two-pass straggler
-        # containment, as in adaptive.py.
-        two_pass = (cfg.two_pass if aa_samples == 1 or
-                    cfg.two_pass != "auto" else True)
         res = trace_disk_rays(
             metric, scene.r_obs, alpha.ravel(), theta.ravel(),
             scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
             cfg.max_steps, disk, backend=cfg.backend,
             precision=cfg.precision, method=cfg.integrator,
-            two_pass=two_pass, pass1_steps=cfg.pass1_steps,
             record_time=record_time)
         out.append(res.status)
 

@@ -5,7 +5,7 @@ public 8-D Hamiltonian state with terminal capture/escape events and return
 the *whole path* for visualization and conservation checks (the compiled
 tracers only return the final angle).
 
-TPU-native design: a fixed-length `lax.scan` with per-step masked freezing
+Array design: a fixed-length `lax.scan` with per-step masked freezing
 records the path at every step; the scan is batched over rays (vmap), so
 one jitted program integrates and records any number of trajectories.
 Adaptivity is approximated with a curvature-scheduled step (smaller h near
@@ -40,7 +40,7 @@ def integrate_geodesic_8d_adaptive(metric, state0, *, r_obs,
                                    rtol: float = 1e-8, atol: float = 1e-10):
     """Adaptive DP45 path recorder on the public 8-D state.
 
-    The TPU-native equivalent of the reference's scipy solve_ivp RK45 slow
+    The batched equivalent of the reference's scipy solve_ivp RK45 slow
     path (geodesic_tracer.py:57-67): same tolerances (rtol 1e-8 /
     atol 1e-10), terminal capture/escape events with interpolation onto
     the crossing, and the whole accepted-step sequence recorded (the
@@ -223,8 +223,8 @@ def trace_ray_trajectory(metric, r_obs, alpha, theta=0.0,
 def plot_trajectories(metric, r_obs, angles_deg, ax=None, dtype=jnp.float32):
     """Equatorial-plane trajectory overlay (geodesic_tracer.py:89-142).
 
-    Requires matplotlib; imports lazily so headless/TPU environments
-    without display deps can use the rest of the package.
+    Requires matplotlib (the optional viz extra); imports lazily so
+    environments without display deps can use the rest of the package.
     """
     import matplotlib.pyplot as plt
 

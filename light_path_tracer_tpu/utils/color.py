@@ -87,8 +87,7 @@ def blackbody_rgb(T):
 
     The table is log-spaced, so the interpolation index is CLOSED FORM —
     two gathers + a lerp, no searchsorted (jnp.interp's sorted search
-    lowers to a slow gather cascade on TPU; measured ~10x slower on the
-    hot-spot animation path).
+    lowers to a gather cascade).
     """
     logt = jnp.log(jnp.clip(jnp.asarray(T, jnp.float32), T_MIN, T_MAX))
     step = (_LOG_T[-1] - _LOG_T[0]) / (N_TABLE - 1)

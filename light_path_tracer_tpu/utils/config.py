@@ -79,21 +79,22 @@ class RenderConfig:
     # "dop853" (8th-order Hairer pair — fewer, costlier steps; see
     # ops/kerr_trace.py), or "rk4" (fixed-step comparison path).
     integrator: str = "dp45"
-    backend: str = "auto"              # "auto" | "xla" | "pallas"
+    # "auto" (the fused Pallas kernel for f32 on a GPU, XLA otherwise),
+    # "xla" or "pallas".
+    backend: str = "auto"
     # "hermite" (more accurate) or "linear" (bug-for-bug reference parity,
     # metrics.py:528-548) boundary-crossing interpolation.
     event_interp: str = "hermite"
     # Polar-coordinate formulation of the Kerr hot loop: "theta"
-    # (reference-parity coordinate — measured fastest end-to-end on a
-    # v5e, BASELINE.md "formulation study") or "mu" (mu = cos(theta),
+    # (reference-parity coordinate, the default) or "mu" (mu = cos(theta),
     # rational transcendental-free RHS + theta-form pole retrace via
-    # trace_rays_kerr_hybrid).
+    # trace_rays_kerr_hybrid, on the XLA path).
     formulation: str = "theta"
     # Tolerance tier: "fast" (f32 atol 3e-5; the throughput tier),
-    # "precise" (f32 3e-6; ~5.6e-5-rad final-alpha RMSE at ~20% cost),
+    # "precise" (f32 3e-6; ~5.6e-5-rad final-alpha RMSE),
     # or "gate" (f32 1e-6; f64 1e-7 — the accuracy tier). Acceptance
-    # gate (image RMSE < 1e-3, GATE_r03.jsonl): f32 "gate" (and
-    # "precise") PASS it under sampling="bilinear"; the nearest-
+    # gate (image RMSE < 1e-3, chip_smoke.py lens phase): f32 "gate"
+    # passes it under sampling="bilinear"; the nearest-
     # sampling gate as written passes on dtype="float64" at the
     # default reference tolerances (see ops/kerr_trace.py TOLS_GATE
     # comment for the texel-flip-floor analysis).
@@ -101,39 +102,32 @@ class RenderConfig:
     # Background-texture sampling: "nearest" (reference parity,
     # image_lens.py:119-120 rint) or "bilinear" (continuous gather —
     # smoother lensed images; image error tracks angle accuracy instead
-    # of the nearest-texel flip floor, BASELINE.md "image gate").
+    # of the nearest-texel flip floor, BASELINE.md accuracy targets).
     sampling: str = "nearest"
     max_steps: int = 200000            # adaptive-step bound (metrics.py:452)
     phi_max: float = 50.0              # Schwarzschild orbit bound
     h_max: float = 0.05                # Schwarzschild fixed step
-    # Kerr straggler containment. None = one dispatch over the whole grid,
-    # which measures fastest on a single v5e up to 1024^2 (the lock-step
-    # loop's global max step count stays low); chunking pays off for
-    # much larger grids or very heterogeneous ray difficulty.
+    # Kerr straggler containment on the XLA path. None = one dispatch
+    # over the whole grid; chunking bounds memory and each chunk's
+    # straggler blast radius for very large or heterogeneous grids.
     chunk_size: int | None = None
     sort_by_difficulty: bool = True    # group photon-ring grazers
-    # Two-pass straggler retrace on the Pallas Kerr path: pass 1 caps
-    # every tile at pass1_steps, then only still-running rays are
-    # re-traced at full depth ("auto" = on whenever Pallas is selected).
-    # Measured ~2x at 1024^2 vs single-pass tiles (BASELINE.md).
-    two_pass: str | bool = "auto"
-    pass1_steps: int = 512
     # Emission-saturation early exit for the volumetric/extras family
     # (ops/kerr_trace.dp45_integrate docstring): a trapped photon-ring
     # lane whose monitored path integrals were bitwise-unchanged for
     # this many CONSECUTIVE integrator attempts while inside the
     # photon-shell band exits as budget-complete instead of grinding
-    # the max_steps budget. The measured grinder (round 4: the order-
-    # decomposition mode ground 204,819 steps, 8x its siblings) is a
-    # Mosaic-arithmetic reject limit cycle whose whole state freezes
-    # bitwise from ~step 500 — attempts-counting catches it; accepted-
-    # step counting would never fire. The window must exceed the
+    # the max_steps budget. The grinder seen so far (the order-
+    # decomposition mode ground 204,819 steps on the previous
+    # accelerator) is a reject limit cycle whose whole state freezes
+    # bitwise — attempts-counting catches it; accepted-step counting
+    # would never fire. The window must exceed the
     # longest in-band no-change dwell of a legitimately progressing ray
     # (~100 steps measured at "gate" tolerance on the a=0.9 capture
     # boundary; 2048 is ~20x that) — an undersized window can exit a
     # near-critical ray before it collects far-field emission it would
     # have reached within budget. 0 disables (every lane runs to
-    # termination / budget, the pre-round-5 behavior).
+    # termination / budget).
     sat_window: int = 2048
     axis_refine_frac: float = 0.07     # Y_AXIS_REFINE_FRAC
     use_tb_symmetry: bool = True       # top/bottom mirror when applicable

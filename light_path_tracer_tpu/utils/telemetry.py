@@ -3,7 +3,7 @@
 The reference instruments per-stage wall-clock + MPix/s
 (image_lens.py:404-425) and its legacy harness samples CPU utilization
 from /proc/<pid>/stat and RSS/peak-RSS from /proc/<pid>/status
-(debugging_image_lense.py:19-172). TPU-native equivalents:
+(debugging_image_lense.py:19-172). Device-side equivalents:
 
   * `profile(path)` — jax.profiler trace context; view in TensorBoard /
     XProf to see per-op device time (the XLA analogue of the legacy
@@ -33,8 +33,8 @@ def profile(log_dir: str = "/tmp/lpt_profile"):
 
 
 def device_memory():
-    """Per-device HBM stats (bytes). Keys vary by backend; 'bytes_in_use'
-    and 'peak_bytes_in_use' are present on TPU/GPU PJRT."""
+    """Per-device memory stats (bytes). Keys vary by backend;
+    'bytes_in_use' and 'peak_bytes_in_use' are present on GPU PJRT."""
     out = {}
     for d in jax.local_devices():
         try:

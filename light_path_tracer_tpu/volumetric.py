@@ -622,22 +622,7 @@ def _trace_spectral(metric, scene, alpha, theta, transfer_fn, n_bands,
             emission=tuple(e.ravel() for e in res.emission),
             tau_hat=res.tau_hat.ravel(),
             status=res.status.ravel())
-    from light_path_tracer_tpu.ops.batch import _kerr_backend
-    if _kerr_backend(cfg.backend, alpha.dtype, metric) == "pallas":
-        # Round-4 fast tier: the generic coupled-extras tile kernel
-        # carries the (tau_hat, I_1..I_n) state on VMEM; two_pass
-        # "auto" = ON (a pointing-dependent photon-ring orbiter can
-        # grind the full step budget — measured 1.3 s vs ~0.03 s at
-        # 256² on the order decomposition, BASELINE.md round 4).
-        if cfg.two_pass is False:
-            from light_path_tracer_tpu.ops.pallas.volumetric_kernel \
-                import trace_rays_spectral_pallas as spectral_fn
-        else:
-            from light_path_tracer_tpu.ops.pallas.volumetric_kernel \
-                import trace_rays_spectral_two_pass as spectral_fn
-    else:
-        spectral_fn = trace_rays_spectral
-    return spectral_fn(
+    return trace_rays_spectral(
         metric, scene.r_obs, alpha, theta, scene.theta_obs,
         transfer_fn, n_bands, max(5000.0, 6.0 * scene.r_obs),
         cfg.max_steps, precision=cfg.precision, method=cfg.integrator,
@@ -743,11 +728,8 @@ def render_volumetric(scene: SceneConfig, resolution,
     per-pixel path integrals as a NumPy array for quantitative use
     (the visibility/observables pipeline takes it directly).
 
-    Backend: cfg.backend resolves exactly like the shadow/lens paths
-    (ops.batch._kerr_backend) — 'auto' picks the Pallas volumetric tile
-    kernel on TPU float32 (ops/pallas/volumetric_kernel.py: the 6/7-
-    component error-controlled state in VMEM), the XLA shared adaptive
-    loop elsewhere (and always for float64 oracle runs).
+    The trace runs the XLA shared adaptive loop with the emission
+    integrals as error-controlled extra state components.
     mesh: a jax.sharding.Mesh routes the trace through row-striped
     tile DP (parallel.tiles.trace_volumetric_grid_sharded).
     """
@@ -778,25 +760,7 @@ def render_volumetric(scene: SceneConfig, resolution,
                 precision=cfg.precision, method=cfg.integrator,
                 absorption_fn=absorption_fn, sat_window=cfg.sat_window)
         else:
-            from light_path_tracer_tpu.ops.batch import _kerr_backend
-            if _kerr_backend(cfg.backend, dtype, metric) == "pallas":
-                # two_pass "auto" = ON here (like the disk path): a
-                # pointing-dependent near-critical orbiter grinds the
-                # full step budget and pins its tile — measured 4.6x
-                # on the jittered 256² torus at ~26 ms clean-grid
-                # overhead, bitwise-identical output (BASELINE.md
-                # round 4).
-                if cfg.two_pass is False:
-                    from light_path_tracer_tpu.ops.pallas \
-                        .volumetric_kernel import (
-                            trace_rays_volumetric_pallas as vol_fn)
-                else:
-                    from light_path_tracer_tpu.ops.pallas \
-                        .volumetric_kernel import (
-                            trace_rays_volumetric_two_pass as vol_fn)
-            else:
-                vol_fn = trace_rays_volumetric
-            res = vol_fn(
+            res = trace_rays_volumetric(
                 metric, scene.r_obs, alpha.ravel(), theta.ravel(),
                 scene.theta_obs, emission_fn,
                 max(5000.0, 6.0 * scene.r_obs), cfg.max_steps,

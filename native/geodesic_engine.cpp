@@ -1,11 +1,11 @@
 // Native CPU geodesic engine for light_path_tracer_tpu.
 //
-// Role: the host-side counterpart of the TPU compute path — a fast,
+// Role: the host-side counterpart of the JAX compute path — a fast,
 // multithreaded float64 oracle for large-sample cross-checks and the CPU
 // fallback/benchmark engine. (The reference ships no native code at all:
 // its fast tier is Numba-JIT Python, SURVEY.md §2. This is new.)
 //
-// Physics contract matches the TPU library (and therefore the reference's
+// Physics contract matches the JAX library (and therefore the reference's
 // behavior, metrics.py:44-658): reduced 5-D Kerr state
 // [r, theta, phi, p_r, p_theta] with conserved (p_t = -E, p_phi = L),
 // Bardeen screen->conserved initial conditions, adaptive Dormand-Prince

@@ -1,9 +1,10 @@
-"""Test configuration: force a virtual 8-device CPU mesh + float64.
+"""Test configuration: a virtual 8-device CPU mesh + float64.
 
 Multi-chip sharding is validated the standard way — N virtual CPU devices
 (SURVEY.md §4e) — and float64 is enabled so the reference-tolerance
 integrator paths are testable. Must run before any JAX backend init, hence
-at conftest import time.
+at conftest import time. JAX_PLATFORMS defaults to cpu; tests marked
+`gpu` need a card and run only with JAX_PLATFORMS=cuda (README "Tests").
 """
 
 import os
@@ -31,7 +32,7 @@ os.environ["LPT_COMPILE_CACHE_OFF"] = "1"
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_enable_x64", True)
 
@@ -52,6 +53,9 @@ def pytest_configure(config):
         "markers", "slow: expensive test (sharded equivalence, movie "
         "modes, multihost topologies, polarized volumetric); skipped "
         "unless --runslow")
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU (a kernel compiled for the card); "
+        "skipped on other hosts, where chip_smoke.py's phases cover it")
 
 
 def pytest_collection_modifyitems(config, items):
@@ -61,6 +65,14 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         if "slow" in item.keywords:
             item.add_marker(skip)
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's default device is a GPU. Decided here, at test
+    time, so every xdist worker collects the same tests."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU (run with JAX_PLATFORMS=cuda on a card)")
 
 
 @pytest.fixture(autouse=True, scope="module")

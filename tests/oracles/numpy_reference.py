@@ -1,4 +1,4 @@
-"""Independent NumPy/SciPy oracles for the TPU tracer.
+"""Independent NumPy/SciPy oracles for the JAX tracer.
 
 These are deliberately written with *different* machinery than the library:
   * the Kerr Hamiltonian is differentiated by complex-step differentiation

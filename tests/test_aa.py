@@ -181,7 +181,7 @@ def test_composite_aa_smooths_and_matches_bulk():
                                             DiskConfig)
     # Smooth background: a noise texture would make the comparison
     # meaningless (any subpixel shift resamples a random texel —
-    # BASELINE.md "f32 gate" finding 2).
+    # BASELINE.md accuracy targets, note 1).
     yy, xx = np.mgrid[0:36, 0:48].astype(np.float32)
     src = np.stack([0.5 + 0.4 * np.sin(yy / 8.0),
                     0.5 + 0.4 * np.cos(xx / 9.0),

@@ -70,7 +70,7 @@ def test_cached_precompute_hit_matches_miss(tmp_path):
 def test_chunk_resume_after_crash(tmp_path, monkeypatch):
     """Kill a chunked precompute after 2 completed chunks; resuming
     loads those chunks from disk, re-traces only the rest, and matches a
-    fresh run exactly (VERDICT r1 item 5)."""
+    fresh run exactly."""
     import light_path_tracer_tpu.checkpoint as ckpt
 
     scene = SceneConfig(M=1.0, a=0.7, r_obs_mult=100.0)

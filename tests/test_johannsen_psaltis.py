@@ -250,9 +250,9 @@ def test_hand_rhs_negative_eps3_matches_autodiff():
 
 @pytest.mark.slow
 def test_jp_runs_on_pallas_tile_kernel():
-    """supports_pallas lifted (round 4): the Mosaic tile kernel traces
-    JP (interpret mode here; real-chip parity in SMOKE artifacts) and
-    agrees with the XLA path."""
+    """JP's hand-derived RHS runs in the fused kernel (interpret mode
+    here; tests/test_pallas.py covers the CUDA lowering) and agrees with
+    the XLA path."""
     from light_path_tracer_tpu.ops.pallas.kerr_trace_kernel import (
         trace_rays_kerr_pallas)
 
@@ -265,7 +265,7 @@ def test_jp_runs_on_pallas_tile_kernel():
     thetas = jnp.asarray(rng.uniform(-np.pi, np.pi, n), jnp.float32)
     refine = jnp.zeros(n, bool)
     rp = trace_rays_kerr_pallas(m, R_OBS, alphas, thetas, np.pi / 2,
-                                refine, 5000.0, 20000, tile_rows=2,
+                                refine, 5000.0, 20000, block=32,
                                 interpret=True)
     rx = trace_rays_kerr(m, R_OBS, alphas, thetas, np.pi / 2, refine,
                          5000.0, 20000)

@@ -168,7 +168,7 @@ def test_kn_pallas_matches_xla():
     thetas = jnp.asarray(rng.uniform(-np.pi, np.pi, n), jnp.float32)
     refine = jnp.zeros(n, bool)
     rp = trace_rays_kerr_pallas(kn, 100.0, alphas, thetas, np.pi / 2,
-                                refine, 5000.0, 5000, tile_rows=8,
+                                refine, 5000.0, 5000, block=32,
                                 interpret=True)
     rx = trace_rays_kerr(kn, 100.0, alphas, thetas, np.pi / 2,
                          refine, 5000.0, 5000)

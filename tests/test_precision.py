@@ -1,7 +1,7 @@
 """Image-level precision gate: float32 production path vs float64.
 
 BASELINE.md gate: image RMSE < 1e-3. The golden tests prove f64 matches
-the reference; this proves the f32 TPU-native tier stays within the gate
+the reference; this proves the f32 tier stays within the gate
 relative to f64 on full rendered images.
 """
 
@@ -55,7 +55,7 @@ def test_lensed_f32_vs_f64_rmse():
 def test_gate_tier_presets():
     """The gate tier exists for both dtypes with the documented
     tolerances (f32 1e-6 = best-f32; f64 1e-7 = the configuration that
-    passes the image-RMSE north star, GATE_r03.jsonl)."""
+    passes the image-RMSE north star)."""
     import jax.numpy as jnp
     import pytest
     from light_path_tracer_tpu.ops.kerr_trace import get_tols
@@ -114,8 +114,8 @@ def test_gate_configuration_passes_image_gate_small():
     where image error tracks angle error. (Under nearest sampling ANY
     two tolerance-distinct runs share a texel-flip noise floor above
     1e-3; the as-written nearest gate passes for the production f64
-    path vs the same-tolerance oracle — full-scale artifact:
-    GATE_r03.jsonl from scripts/f32_gate.py.)"""
+    path vs the same-tolerance oracle — full scale:
+    scripts/f32_gate.py.)"""
     yy, xx = np.mgrid[0:64, 0:64] / 64.0
     src = np.stack([
         0.5 + 0.5 * np.sin(2 * np.pi * (3 * xx + 2 * yy)),

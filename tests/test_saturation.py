@@ -1,18 +1,16 @@
 """Emission-saturation early exit (round-5 verdict item 1).
 
-A near-critical photon-ring orbiter neither captures nor escapes: on the
-chip it grinds the full step budget (measured 204,819 steps on the
-canonical volumetric-decomposition pointing, NEWMODES_r04 — 8x every
-sibling mode) even though a 2048-step cap was proven bitwise-identical
-(the orbiter's path integrals stop changing). dp45_integrate's
-sat_window exit ends such a lane once its monitored extras have been
-bitwise-unchanged for a full window of accepted steps while inside the
-photon-shell radial band (ops/kerr_trace.py docstring).
+A near-critical photon-ring orbiter neither captures nor escapes: it
+can grind the full step budget even though its path integrals have
+stopped changing. dp45_integrate's sat_window exit ends such a lane once
+its monitored extras have been bitwise-unchanged for a full window of
+accepted steps while inside the photon-shell radial band
+(ops/kerr_trace.py docstring).
 
-The grind itself is chip-only (the same rays finish in ~100 steps on
-CPU — BASELINE.md round 4), so these tests pin the MECHANISM and the
-no-op contract on CPU; the chip-side throughput claim is re-measured
-per round into NEWMODES_r05.json. Reference anchor: the 200k hard cap,
+The grind was seen only on the previous accelerator's arithmetic (the
+same rays finish in ~100 steps on CPU), so these tests pin the MECHANISM
+and the no-op contract on CPU; whether the exit ever fires on the GPU is
+an open question (ROADMAP D3). Reference anchor: the 200k hard cap,
 /root/reference/metrics.py:452, is the reference's only answer to
 trapped orbiters — this exit is the part it lacks.
 """
@@ -155,57 +153,3 @@ def test_polarized_default_window_noop():
         scene, (24, 24), CFG_OFF)
     np.testing.assert_array_equal(i_on, i_off)
     np.testing.assert_array_equal(pf_on, pf_off)
-
-
-def test_pallas_interpret_exit_and_unconverged_contract():
-    """Pallas tier: the same zero-integrand boundary fan exits early in
-    interpret mode, and saturated lanes are NOT flagged unconverged
-    (they must not be re-traced by the two-pass driver)."""
-    from light_path_tracer_tpu.ops.pallas.volumetric_kernel import (
-        trace_rays_volumetric_pallas)
-    em_fn, _ = _empty_shell_fns()
-    alphas = _boundary_fan()
-    thetas = jnp.zeros_like(alphas)
-    res_off, unc_off = trace_rays_volumetric_pallas(
-        METRIC, R_OBS, alphas, thetas, THETA_OBS, em_fn, 5000.0,
-        64, precision="gate", tile_rows=8, interpret=True,
-        return_unconverged=True, sat_window=0)
-    res_on, unc_on = trace_rays_volumetric_pallas(
-        METRIC, R_OBS, alphas, thetas, THETA_OBS, em_fn, 5000.0,
-        64, precision="gate", tile_rows=8, interpret=True,
-        return_unconverged=True, sat_window=8)
-    # The boundary fan needs ~121 steps at "gate" tolerance: with a
-    # 64-step tile budget and the exit off, lanes are still RUNNING
-    # with lambda budget left -> unconverged; with the exit on they
-    # park at lam = lambda_max by ~step 25 -> converged.
-    assert bool(np.asarray(unc_off).any())
-    assert not bool(np.asarray(unc_on).any())
-
-
-@pytest.mark.slow
-def test_pallas_interpret_two_pass_decomposed_noop():
-    """Two-pass order decomposition, Pallas interpret tier: production
-    window on == off, bitwise (the end-to-end grinder path)."""
-    import jax
-    from light_path_tracer_tpu.ops.pallas.volumetric_kernel import (
-        trace_rays_spectral_two_pass)
-    from light_path_tracer_tpu.volumetric import make_order_transfer
-    riaf = RIAFConfig()
-    transfer = make_order_transfer(METRIC, riaf, 3)
-    n = 16 * 16
-    rng = np.random.default_rng(7)
-    alphas = jnp.asarray(rng.uniform(0.02, 0.12, n), jnp.float32)
-    thetas = jnp.asarray(rng.uniform(-np.pi, np.pi, n), jnp.float32)
-    kw = dict(precision="fast", pass1_steps=256, slots=64, tile_rows=8,
-              interpret=True)
-    res_on = trace_rays_spectral_two_pass(
-        METRIC, R_OBS, alphas, thetas, THETA_OBS, transfer, 3, 5000.0,
-        4000, sat_window=2048, sat_monitor=(1, 2, 3), **kw)
-    res_off = trace_rays_spectral_two_pass(
-        METRIC, R_OBS, alphas, thetas, THETA_OBS, transfer, 3, 5000.0,
-        4000, sat_window=0, sat_monitor=(1, 2, 3), **kw)
-    for e_on, e_off in zip(res_on.emission, res_off.emission):
-        np.testing.assert_array_equal(np.asarray(e_on),
-                                      np.asarray(e_off))
-    np.testing.assert_array_equal(np.asarray(res_on.status),
-                                  np.asarray(res_off.status))
